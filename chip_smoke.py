@@ -9,7 +9,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      compiler's register / shared-memory report;
   3. hold the kernel against its plain PyTorch version on the card, bit for
      bit: K=512 at B=1 and B=4 on seeded boxes with class offsets, the empty
-     case, and the candidates decoded from docs/examples/poker_labeled.png;
+     case, all 512 candidates valid and clustered (full_chain), 16 seeded
+     frames of 0 to 512 valid candidates (mixed_b16), and the candidates
+     decoded from docs/examples/poker_labeled.png, alone and repeated 4 and
+     16 times (batch4, batch16);
   4. with the launch counter at 0, drive the main path at full width
      (YOLOv8s detector in bf16, yolov8n-cls in f32): process_screenshot on
      the PNG and process_frame on a seeded 1200x1920 frame; read the counter;
@@ -18,11 +21,13 @@ Phases, in order; any failure raises and the exit code is not 0:
      tests/test_golden_e2e.py), the same result JSON but for its time field
      and button centers within 5 px;
   6. fail if the kernel was not launched by the main path;
-  7. time the kernel at the main path's K=512 (its device time from a
-     torch.profiler trace, and the wrapper's time per call with CUDA events)
-     and its plain version, the frame latency with the host clock, and the
-     frame's device time by kernel; print them and a JSON line listing every
-     kernel with its bound;
+  7. time the kernel's device time from a torch.profiler trace at
+     poker_labeled, full_chain, batch4 and batch16 (each shape's launches
+     inside a record_function range; a range without all of its kernel
+     events fails), each beside its bound; the wrapper's time per call with
+     CUDA events and the plain version at the main path's shape; the frame
+     latency with the host clock, and the frame's device time by kernel;
+     print them and a JSON line listing every kernel with its bound;
   8. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
@@ -134,6 +139,65 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fns: dict, reps: int = 50) -> dict:
+    """{name: mean device time of the NMS kernel per launch of fns[name]}, from
+    one torch.profiler trace. Each name's launches run inside a record_function
+    range of their own, 20 ms apart; a kernel event belongs to the range that
+    starts last before it, and every range must hold all ``reps`` launches."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the first launches after the trace starts can go unrecorded: begin
+        # with other device work and a pause
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for name, fn in fns.items():
+            with record_function(f"nms_keep_timed/{name}"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            time.sleep(0.02)
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.name.split("/", 1)[1]) for e in events
+                    if e.name.startswith("nms_keep_timed/")
+                    and not str(e.device_type).endswith("CUDA"))
+    if [name for _, name in ranges] != list(fns):
+        fail(f"the profiler trace holds the ranges {ranges}, not one for each of {list(fns)}")
+    spans = {name: [] for name in fns}
+    for e in events:
+        if str(e.device_type).endswith("CUDA") and "nms_keep_kernel" in e.name:
+            # kernel and host clocks agree within microseconds; the ranges are 20 ms apart
+            owner = [name for start, name in ranges if start <= e.time_range.start + 1000]
+            if not owner:
+                fail(f"an nms_keep_kernel event at {e.time_range.start} us precedes every range")
+            spans[owner[-1]].append(e.time_range.elapsed_us())
+    counts = {name: len(us) for name, us in spans.items()}
+    if set(counts.values()) != {reps}:
+        fail(f"the profiler trace holds {counts} nms_keep_kernel events, not {reps} per range")
+    return {name: sum(us) / reps / 1e3 for name, us in spans.items()}
+
+
+def bound(boxes: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor):
+    """(bound ms, "bytes" or "operations", tested pairs) of one keep-mask call.
+
+    Bytes: each frame's boxes up to its last valid candidate, all of valid and
+    keep, each once, over HBM's rate. Operations: those boxes' areas, and the
+    tests of every valid candidate against the kept ones before it, over the
+    f32 rate."""
+    v, kk = valid.cpu().numpy(), keep.cpu().numpy().astype(np.int64)
+    k = v.shape[1]
+    last = np.where(v.any(axis=1), k - np.argmax(v[:, ::-1], axis=1), 0)  # last valid + 1
+    needed = int(last.sum())
+    pairs = int(((np.cumsum(kk, axis=1) - kk) * v).sum())  # kept j < i, valid i
+    bytes_ms = (needed * 16 + valid.numel() + keep.numel()) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (needed * AREA_OPS + pairs * PAIR_OPS) / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", pairs
+
+
 def device_events(fn, reps: int):
     """(wall ms of ``reps`` calls, [(name, device us)] of every device event)
     from torch.profiler's CUDA trace; [] if the trace holds no device time."""
@@ -187,13 +251,19 @@ def main() -> int:
         "random_b1": random_candidates(rng, 1, [300], clustered=False),
         "clustered_b4": random_candidates(rng, 4, [0, 77, 300, K], clustered=True),
         "empty": (np.zeros((1, K, 4), np.float32), np.zeros((1, K), bool)),
+        "full_chain": random_candidates(rng, 1, [K], clustered=True),
+        "mixed_b16": random_candidates(rng, 16, np.linspace(0, K, 16).astype(int), clustered=True),
     }
     cand = image_candidates(gpu, frame_img)
     real = (cand.nms_boxes[None].contiguous(), cand.valid[None].contiguous())
+    cases["poker_labeled"] = real
+    cases["batch4"] = (real[0].repeat(4, 1, 1), real[1].repeat(4, 1))
+    cases["batch16"] = (real[0].repeat(16, 1, 1), real[1].repeat(16, 1))
+    cases = {name: (torch.as_tensor(boxes, device=dev).contiguous(),
+                    torch.as_tensor(valid, device=dev).contiguous())
+             for name, (boxes, valid) in cases.items()}
     mismatches, max_abs_err = 0, 0.0
-    for name, (boxes, valid) in {**cases, "poker_labeled": real}.items():
-        boxes = torch.as_tensor(boxes, device=dev)
-        valid = torch.as_tensor(valid, device=dev)
+    for name, (boxes, valid) in cases.items():
         got = nms_kernel.nms_keep(boxes, valid, IOU)
         ref = nms_kernel.nms_keep_plain(boxes, valid, IOU)
         torch.cuda.synchronize()
@@ -236,20 +306,22 @@ def main() -> int:
     if launches < 2:
         fail(f"nms_keep launched {launches} times on the main path, expected 2")
 
-    # 7. timings at the main path's shapes
+    # 7. timings: the kernel at four shapes, the rest at the main path's
+    timed = {name: cases[name] for name in ("poker_labeled", "full_chain", "batch4", "batch16")}
+    ms_by_shape = kernel_ms({name: (lambda b=b, v=v: nms_kernel.nms_keep(b, v, IOU))
+                             for name, (b, v) in timed.items()})
+    bound_by_shape = {name: bound(b, v, nms_kernel.nms_keep_plain(b, v, IOU))
+                      for name, (b, v) in timed.items()}
+    print(json.dumps({"nms_keep_by_shape": {
+        name: {"B": timed[name][0].shape[0], "valid": int(timed[name][1].sum()),
+               "ms": ms_by_shape[name], "bound_ms": bound_by_shape[name][0],
+               "bound_by": bound_by_shape[name][1], "tested_pairs": bound_by_shape[name][2]}
+        for name in timed}}))
     kboxes, kvalid = real
-    call = lambda: nms_kernel.nms_keep(kboxes, kvalid, IOU)
-    call_ms = cuda_ms(call, reps=200, warmup=20)  # bounded by the host's enqueue
-    _, events = device_events(call, reps=50)
-    kernel_us = [us for name, us in events if "nms_keep_kernel" in name]
-    ms = sum(kernel_us) / len(kernel_us) / 1e3 if kernel_us else call_ms
+    ms = ms_by_shape["poker_labeled"]
+    bound_ms, bound_kind, pairs = bound_by_shape["poker_labeled"]
+    call_ms = cuda_ms(lambda: nms_kernel.nms_keep(kboxes, kvalid, IOU), reps=200, warmup=20)
     plain_ms = cuda_ms(lambda: nms_kernel.nms_keep_plain(kboxes, kvalid, IOU), reps=5, warmup=1)
-    keep = nms_kernel.nms_keep_plain(kboxes, kvalid, IOU)[0].cpu().numpy()
-    n_valid = int(kvalid.sum())
-    pairs = int(sum(keep[:i].sum() for i in range(n_valid)))  # kept j < i, as the kernel tests
-    bytes_moved = kboxes.numel() * 4 + kvalid.numel() + keep.size
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = (K * AREA_OPS + pairs * PAIR_OPS) / F32_OPS_PER_S * 1e3
     frame_ms = []
     for _ in range(3):
         gpu.process_frame(frame_img)
@@ -258,7 +330,7 @@ def main() -> int:
         gpu.process_frame(frame_img)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps({"frame_ms": {"median": statistics.median(frame_ms), "min": min(frame_ms),
-                                   "shape": list(frame_img.shape), "n_valid": n_valid,
+                                   "shape": list(frame_img.shape), "n_valid": int(kvalid.sum()),
                                    "tested_pairs": pairs}}))
     wall_ms, events = device_events(lambda: gpu.process_frame(frame_img), reps=5)
     by_name = {}
@@ -272,8 +344,9 @@ def main() -> int:
         "top": sorted(([n[:80], t] for n, t in by_name.items()), key=lambda x: -x[1])[:8],
     }}))
     print(json.dumps({"nms_keep_timing": {
-        "kernel_ms": ms, "source": "torch.profiler" if kernel_us else "cuda_events",
+        "kernel_ms": ms, "source": "torch.profiler",
         "wrapper_call_ms": call_ms, "plain_ms": plain_ms}}))
+
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
@@ -283,9 +356,11 @@ def main() -> int:
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
         "ms": ms,
+        "ms_by_shape": ms_by_shape,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_kind,
+        "bound_ms_by_shape": {name: b[0] for name, b in bound_by_shape.items()},
         "library_ms": None,
     }]}))
 

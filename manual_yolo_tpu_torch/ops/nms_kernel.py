@@ -2,8 +2,10 @@
 
 Counterpart of ``manual_yolo_tpu/ops/pallas_nms.py`` (``pallas_nms_keep``).
 
-The kernel is compiled by ``nvcc`` at first use into a shared library with a
-plain C interface and bound with ``ctypes``. The library goes into
+The kernel (one CTA of 512 threads per frame, a chunked greedy scan with two
+block barriers per 32 candidates; the design is in the source's note) is
+compiled by ``nvcc`` at first use into a shared library with a plain C
+interface and bound with ``ctypes``. The library goes into
 ``manual_yolo_tpu_torch/_build/`` (git-ignored), named by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one is
 not.
@@ -38,7 +40,7 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-MAX_K = 2048  # 21 shared bytes per candidate must fit the default 48 KB
+MAX_K = 2048  # 22 shared bytes and a bit per candidate must fit the default 48 KB
 
 
 def _nvcc() -> str:

@@ -14,9 +14,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from manual_yolo_tpu_torch.ops import nms as pt_nms  # noqa: E402
 from manual_yolo_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain  # noqa: E402
 from manual_yolo_tpu_torch.runtime import shot as pt_shot  # noqa: E402
+from torch_nms_cases import NMS_CASES, nms_case  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = os.path.join(REPO, "weights", "poker_detector.npz")
@@ -31,27 +31,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _candidates(rng, b, k):
-    xy = rng.uniform(0, 400, (b, k, 2))
-    wh = rng.uniform(10, 120, (b, k, 2))
-    cls = rng.integers(0, 3, (b, k, 1)) * pt_nms.MAX_WH
-    boxes = (np.concatenate([xy, xy + wh], -1) + cls).astype(np.float32)
-    valid = np.arange(k)[None, :] < rng.integers(0, k + 1, (b, 1))
-    return boxes, valid
-
-
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k", [(1, 512), (4, 512), (2, 37), (1, 2048)])
-def test_nms_keep_kernel_matches_plain(cuda_device, b, k):
+@pytest.mark.parametrize("case", NMS_CASES)
+def test_nms_keep_kernel_matches_plain(cuda_device, case):
     """The CUDA kernel against its plain twin on the card: bit-exact."""
-    boxes, valid = _candidates(np.random.default_rng(b * k), b, k)
+    boxes, valid, thres = nms_case(case)
     bt = torch.from_numpy(boxes).to(cuda_device)
     vt = torch.from_numpy(valid).to(cuda_device)
     before = nms_keep.launches
-    got = nms_keep(bt, vt, 0.7)
+    got = nms_keep(bt, vt, thres)
     torch.cuda.synchronize()
     assert nms_keep.launches == before + 1
-    assert torch.equal(got, nms_keep_plain(bt, vt, 0.7))
+    assert torch.equal(got, nms_keep_plain(bt, vt, thres))
 
 
 @pytest.mark.gpu
