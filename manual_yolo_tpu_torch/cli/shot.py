@@ -8,8 +8,10 @@ Usage:
 Defaults come from :class:`manual_yolo_tpu_torch.config.AppConfig`;
 ``--config`` loads a JSON override file, flags override that. The device
 defaults to ``cuda``; without a card the command fails unless
-``--device cpu`` is given. OCR, the vision-LLM fallback and the annotated
-image are not ported yet.
+``--device cpu`` is given. OCR runs when the config enables it (the
+default), with the recognizer ensemble of ``--ocr-weights`` and the CRAFT
+text detector of ``--text-detector``; ``--no-ocr`` turns it off. The
+vision-LLM fallback and the annotated image are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ def main(argv=None) -> int:
     pre_args, _ = pre.parse_known_args(argv)
 
     from manual_yolo_tpu_torch.config import AppConfig
+    from manual_yolo_tpu_torch.runtime.ocr import DEFAULT_RECOGNIZER_WEIGHTS
 
     cfg = AppConfig.load(pre_args.config)
 
@@ -41,19 +44,32 @@ def main(argv=None) -> int:
     ap.add_argument("--iou", type=float, default=cfg.detector.iou)
     ap.add_argument("--dtype", default=cfg.detector.compute_dtype,
                     choices=["bfloat16", "float32"])
+    ap.add_argument("--ocr-weights",
+                    default=cfg.ocr.recognizer_weights or DEFAULT_RECOGNIZER_WEIGHTS)
+    ap.add_argument("--text-detector",
+                    default=cfg.ocr.detector_weights or "weights/craft_real.npz",
+                    help="CRAFT weights for the multi-line read_region fallback")
+    ap.add_argument("--no-ocr", action="store_true", help="disable the OCR pass")
+    ap.add_argument("--no-llm", action="store_true",
+                    help="accepted for compatibility; the vision-LLM fallback is not ported")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--accumulate", action="store_true",
                     help="merge into existing output JSON fill-don't-overwrite")
     args = ap.parse_args(argv)
 
+    from manual_yolo_tpu_torch.runtime.ocr import default_ocr_engine
     from manual_yolo_tpu_torch.runtime.shot import load_fused_pipeline, process_screenshot
 
     pipeline = load_fused_pipeline(
         args.detector, args.classifier, imgsz=args.imgsz, conf=args.conf,
         iou=args.iou, compute_dtype=args.dtype, device=args.device,
     )
+    # a missing weight file gives no engine; any other failure reaches the user
+    ocr = None
+    if not args.no_ocr and cfg.ocr.enabled:
+        ocr = default_ocr_engine(args.ocr_weights, args.text_detector, device=args.device)
     result = process_screenshot(
-        pipeline, args.image, args.output_json, accumulate=args.accumulate,
+        pipeline, args.image, args.output_json, ocr=ocr, accumulate=args.accumulate,
     )
     print(json.dumps(result, indent=2))
     print(f"saved {args.output_json}", file=sys.stderr)

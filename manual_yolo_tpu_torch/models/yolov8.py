@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from manual_yolo_tpu_torch.core.device import full_f32
 from manual_yolo_tpu_torch.core.weights import conv_hwio_to_oihw, fold_batchnorm
 
 BN_EPS = 1e-3  # ultralytics Conv uses BatchNorm2d(eps=0.001)
@@ -149,19 +150,6 @@ def fold_params(params: List[Any], spec: ModelSpec) -> List[Any]:
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """Turn TF32 off for the convs and matmuls inside (restored after)."""
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 class ConvBlock(nn.Module):
@@ -323,7 +311,7 @@ class _YOLOv8(nn.Module):
         return feats
 
     def _precision(self):
-        return _full_f32() if self.compute_dtype == torch.float32 else contextlib.nullcontext()
+        return full_f32() if self.compute_dtype == torch.float32 else contextlib.nullcontext()
 
 
 class YOLOv8Detect(_YOLOv8):

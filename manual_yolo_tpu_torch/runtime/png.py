@@ -1,9 +1,15 @@
-"""A small PNG reader (standard library ``zlib`` + numpy).
+"""A PNG reader (standard library ``zlib``, numpy and the port's host library).
 
-Reads 8-bit, non-interlaced RGB (colour type 2) and RGBA (colour type 6)
-files, the format screenshots are saved in; the alpha channel is dropped.
-Anything else raises ``ValueError``. It stands in for ``cv2.imread`` on
-the single-screenshot path, so the port does not depend on OpenCV.
+It stands in for ``cv2.imread`` on the single-screenshot path, so the port
+does not depend on OpenCV, and gives what ``cv2.imread(path)`` gives: three
+8-bit channels. It reads every PNG that the standard allows: grayscale, RGB
+and palette images, with or without alpha, at 1 to 16 bits per sample,
+interlaced (Adam7) or not. Alpha is dropped without compositing, 16-bit
+samples keep their high byte, and grayscale below 8 bits is scaled to 0..255,
+as libpng does for OpenCV. Any other file raises ``ValueError``.
+
+The row filters are undone in C++ (``csrc/host.cpp::png_unfilter``, bound in
+``runtime/native.py``); ``_unfilter`` is its plain twin, kept for the tests.
 """
 
 from __future__ import annotations
@@ -13,8 +19,22 @@ import zlib
 
 import numpy as np
 
+from manual_yolo_tpu_torch.runtime import native
+
+SUPPORTED = ("PNG: grayscale, RGB or palette, with or without alpha, 1 to 16 bits "
+             "per sample, interlaced or not")
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}
+# colour type -> (samples per pixel, allowed bit depths)
+_FORMATS = {
+    0: (1, (1, 2, 4, 8, 16)),  # grayscale
+    2: (3, (8, 16)),  # RGB
+    3: (1, (1, 2, 4, 8)),  # palette
+    4: (2, (8, 16)),  # grayscale + alpha
+    6: (4, (8, 16)),  # RGBA
+}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -26,6 +46,7 @@ def _paeth(a: int, b: int, c: int) -> int:
 
 
 def _unfilter(raw: np.ndarray, height: int, width: int, bpp: int) -> np.ndarray:
+    """Plain twin of ``native.png_unfilter``: rows of ``width * bpp`` bytes."""
     stride = width * bpp
     rows = raw.reshape(height, stride + 1)
     out = np.zeros((height, stride), np.uint8)
@@ -54,35 +75,84 @@ def _unfilter(raw: np.ndarray, height: int, width: int, bpp: int) -> np.ndarray:
     return out.reshape(height, width, bpp)
 
 
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, stride) -> (h, width, channels) uint8 samples."""
+    h = rows.shape[0]
+    if depth == 16:  # big-endian pairs: keep the high byte
+        return rows.reshape(h, width, channels, 2)[..., 0]
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :width * depth].reshape(h, width, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[..., None]
+
+
+def _bad(path: str, why: str) -> ValueError:
+    return ValueError(f"{path}: {why}; only PNG files are read ({SUPPORTED})")
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG file to an (H, W, 3) uint8 RGB array."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
+        raise _bad(path, "not a PNG file")
+    pos, header, palette, idat = 8, None, None, []
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         ctype = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if ctype == b"IHDR":
+            if len(body) != 13:
+                raise _bad(path, "malformed IHDR chunk")
             header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    width, height, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
-        raise ValueError(
-            f"{path}: only 8-bit non-interlaced RGB/RGBA PNGs are read "
-            f"(bit depth {depth}, colour type {color}, interlace {interlace})"
-        )
-    bpp = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (width * bpp + 1):
-        raise ValueError(f"{path}: image data has {raw.size} bytes, expected "
-                         f"{height * (width * bpp + 1)}")
-    return np.ascontiguousarray(_unfilter(raw, height, width, bpp)[..., :3])
+        raise _bad(path, "no IHDR chunk")
+    width, height, depth, color, comp, filt, interlace = header
+    if color not in _FORMATS or depth not in _FORMATS[color][1]:
+        raise _bad(path, f"colour type {color} at bit depth {depth} is not a PNG format")
+    if comp != 0 or filt != 0 or interlace not in (0, 1):
+        raise _bad(path, f"compression {comp}, filter method {filt}, interlace {interlace}")
+    if color == 3 and palette is None:
+        raise _bad(path, "palette image without a PLTE chunk")
+    channels = _FORMATS[color][0]
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise _bad(path, f"corrupt image data ({e})") from e
+
+    img = np.empty((height, width, channels), np.uint8)
+    offset = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * bits + 7) // 8
+        n = ph * (stride + 1)
+        if offset + n > raw.size:
+            raise _bad(path, f"image data has {raw.size} bytes, too few for {width}x{height}")
+        rows = native.png_unfilter(raw[offset:offset + n], ph, stride, bpp)
+        img[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+        offset += n
+    if offset != raw.size:
+        raise _bad(path, f"image data has {raw.size} bytes, expected {offset}")
+
+    if color == 3:
+        if int(img.max(initial=0)) >= len(palette):
+            raise _bad(path, "palette index out of range")
+        return palette[img[..., 0]]
+    if color in (0, 4):
+        gray = img[..., 0]
+        if depth < 8:
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(gray[..., None], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])

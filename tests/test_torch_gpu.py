@@ -1,5 +1,7 @@
-"""The port on a CUDA card: the NMS kernel against its plain twin, and the
-bf16 pipeline on the card against the f32 pipeline on the CPU.
+"""The port on a CUDA card: the NMS kernel against its plain twin, the bf16
+pipeline on the card against the f32 pipeline on the CPU, the CRNN and the OCR
+engine on the card against the CPU, and the host C++ library against its
+plain twins (built by the card's host).
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -14,7 +16,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from manual_yolo_tpu_torch.core.serialization import load_params  # noqa: E402
+from manual_yolo_tpu_torch.models import crnn  # noqa: E402
+from manual_yolo_tpu_torch.ops import ctc  # noqa: E402
 from manual_yolo_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain  # noqa: E402
+from manual_yolo_tpu_torch.runtime import native, png  # noqa: E402
+from manual_yolo_tpu_torch.runtime import ocr as pt_ocr  # noqa: E402
 from manual_yolo_tpu_torch.runtime import shot as pt_shot  # noqa: E402
 from torch_nms_cases import NMS_CASES, nms_case  # noqa: E402
 
@@ -73,3 +80,59 @@ def test_pipeline_on_card_matches_cpu(cuda_device):
         assert np.abs(np.subtract(g["bbox"], r["bbox"])).max() <= 5
         if r["class_name"].endswith("_rank"):
             assert g["ocr_text"] == r["ocr_text"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights,img_h", [("crnn_real_a.npz", 32), ("crnn_h64.npz", 64)])
+def test_crnn_on_card_matches_cpu(cuda_device, weights, img_h):
+    """f32 logits (TF32 off) within 1e-4 of the CPU's."""
+    params, _ = load_params(os.path.join(REPO, "weights", weights))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (6, img_h, 256, 1)).astype(np.float32))
+    with torch.inference_mode():
+        got = crnn.from_jax_params(params, cuda_device)(x.to(cuda_device)).cpu()
+        ref = crnn.from_jax_params(params, "cpu")(x)
+    assert got.shape == (6, 64, crnn.NUM_CLASSES)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_host_library_matches_plain_twins(cuda_device):
+    """The card host's g++ build of csrc/host.cpp: CTC beam and scores against
+    the numpy twins, the PNG unfilter against _unfilter on all filter types."""
+    rng = np.random.default_rng(3)
+    for _ in range(4):
+        logp = torch.log_softmax(torch.from_numpy(
+            rng.normal(0, 3, (64, crnn.NUM_CLASSES)).astype(np.float32)), -1).numpy()
+        got, ref = ctc.prefix_beam_decode(logp), ctc.prefix_beam_decode_plain(logp)
+        assert [p for p, _ in got] == [p for p, _ in ref]
+        cands = [p for p, _ in ref] + [(), (3, 3)]
+        np.testing.assert_allclose(ctc.score_candidates(logp, cands),
+                                   ctc.score_candidates_plain(logp, cands), rtol=1e-6)
+    h, w, bpp = 7, 9, 3
+    rows = rng.integers(0, 256, (h, w * bpp + 1), dtype=np.uint8)
+    rows[:, 0] = np.arange(h) % 5
+    np.testing.assert_array_equal(native.png_unfilter(rows.reshape(-1), h, w * bpp, bpp),
+                                  png._unfilter(rows.reshape(-1), h, w, bpp).reshape(h, -1))
+
+
+def _text_crop(rng, h, w):
+    """A light uint8 BGR crop with a few dark strokes."""
+    img = np.full((h, w, 3), rng.integers(150, 230), np.uint8)
+    for _ in range(int(rng.integers(3, 9))):
+        y, x = int(rng.integers(0, h - 4)), int(rng.integers(0, w - 4))
+        img[y:y + int(rng.integers(3, h // 2 + 4)), x:x + int(rng.integers(1, 4))] = rng.integers(0, 60)
+    return img
+
+
+@pytest.mark.gpu
+def test_read_fields_conf_on_card_matches_cpu(cuda_device):
+    """Seeded crops of every field kind: the same texts, confidences within 1e-3."""
+    rng = np.random.default_rng(5)
+    names = ["villian1_name", "villian1_stack", "total_pot", "game_id", "card1_rank", "my_bet"]
+    crops = [_text_crop(rng, int(rng.integers(18, 34)), int(rng.integers(40, 160))) for _ in names]
+    gpu = pt_ocr.default_ocr_engine(device=cuda_device)
+    cpu = pt_ocr.default_ocr_engine(device="cpu")
+    got, ref = gpu.read_fields_conf(crops, names), cpu.read_fields_conf(crops, names)
+    assert [t for t, _ in got] == [t for t, _ in ref]
+    assert max(abs(c - rc) for (_, c), (_, rc) in zip(got, ref)) <= 1e-3
+    assert gpu.errors == 0 and cpu.errors == 0

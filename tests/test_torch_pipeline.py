@@ -162,20 +162,27 @@ def test_unported_options_raise(pipelines, tmp_path):
 
 
 def test_cli_shot_on_cpu_matches_jax(tmp_path, capsys):
-    """The port's CLI at imgsz 320, f32, against JAX process_screenshot."""
+    """The port's CLI at imgsz 320, f32, with its default OCR pass, against JAX
+    process_screenshot with the JAX CLI's default OCR engine; and with
+    --no-ocr against JAX without OCR."""
+    from manual_yolo_tpu.runtime.ocr import default_ocr_engine
     from manual_yolo_tpu_torch.cli import shot as cli
 
-    out = tmp_path / "cli.json"
-    rc = cli.main(["--image", IMAGE, "--output-json", str(out), "--device", "cpu",
-                   "--imgsz", "320", "--dtype", "float32"])
-    assert rc == 0
-    got = json.loads(out.read_text())
-    assert json.loads(capsys.readouterr().out) == got
     jx = jax_shot.load_fused_pipeline(DET, CLS, imgsz=320, conf=0.5, compute_dtype="float32")
-    ref = jax_shot.process_screenshot(jx, IMAGE, str(tmp_path / "jx.json"), output_image=None,
-                                      use_llm_fallback=False)
-    got.pop("time"), ref.pop("time")
-    assert got == ref
+    jx_ocr = default_ocr_engine()
+    jx_ocr.MIN_BUCKET = 8  # one batch bucket: fewer JAX recognizer compiles
+    for flags, ocr in (([], jx_ocr), (["--no-ocr", "--no-llm"], None)):
+        out = tmp_path / "cli.json"
+        rc = cli.main(["--image", IMAGE, "--output-json", str(out), "--device", "cpu",
+                       "--imgsz", "320", "--dtype", "float32", *flags])
+        assert rc == 0
+        got = json.loads(out.read_text())
+        assert json.loads(capsys.readouterr().out) == got
+        ref = jax_shot.process_screenshot(jx, IMAGE, str(tmp_path / "jx.json"), output_image=None,
+                                          ocr=ocr, use_llm_fallback=False)
+        got.pop("time"), ref.pop("time")
+        assert got == ref
+        assert any(v["name"] for v in got["villains"]) == (ocr is not None)
 
 
 # --- PNG reader ------------------------------------------------------------
@@ -240,10 +247,13 @@ def test_read_png_all_filter_types(tmp_path, channels):
 
 
 def test_read_png_rejects_unsupported(tmp_path):
-    bad = tmp_path / "gray16.png"
-    body = struct.pack(">IIBBBBB", 4, 4, 16, 0, 0, 0, 0)
+    """What no PNG may hold (RGB at 4 bits), and what is not a PNG, raise
+    ValueError naming the format that is read; a missing file raises
+    FileNotFoundError."""
+    bad = tmp_path / "rgb4.png"
+    body = struct.pack(">IIBBBBB", 4, 4, 4, 2, 0, 0, 0)
     bad.write_bytes(b"\x89PNG\r\n\x1a\n" + struct.pack(">I", len(body)) + b"IHDR" + body + b"\0" * 4)
-    with pytest.raises(ValueError, match="8-bit"):
+    with pytest.raises(ValueError, match="colour type 2 at bit depth 4.*only PNG files are read"):
         read_png(str(bad))
     notpng = tmp_path / "x.png"
     notpng.write_bytes(b"GIF89a")
