@@ -1,4 +1,5 @@
-"""Run the PyTorch port's single-screenshot path on one CUDA card, and check it.
+"""Run the PyTorch port's paths on one CUDA card, and check them: the
+single-screenshot path, the live loop and the hand session.
 
     python3 chip_smoke.py
 
@@ -34,8 +35,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      moved box is another crop; those reads are printed); and the screenshot
      with OCR on the card with the f32 detector: the CPU's result exactly;
   8. fail if the kernel was not launched by the main path;
-  9. time the kernel's device time from a torch.profiler trace at
-     poker_labeled, full_chain, batch4 and batch16 (each shape's launches
+  9. the live loop, as cli/detect.py builds it (YOLOv8s bf16 at imgsz 640,
+     conf 0.25, the rank classifier, OCR on): with the launch counter at 0,
+     20 frames (the example and copies shifted by a few pixels) through
+     LiveLoop.step; one launch per frame, no caught error; the time per step
+     (``live_ms``) and the stage stats; then the first 5 frames in f32 on
+     the card and on the CPU: the same detections.jsonl rows less
+     timestamps and the same game JSON (box corners within 1 px, printed
+     where they differ);
+ 10. the hand session, as cli/pipe.py builds it (YOLOv8s bf16 at imgsz 1280,
+     conf 0.35, 640-px tiles at 0.2, DeepSORT with weights/reid_embedder.npz,
+     OCR on): with the launch counter at 0, 8 steps on a seeded 1200x1920
+     frame (12 tiles) and 8 on the example; every tiled batch is one launch;
+     the time per step (``hands_ms``), tiles and launches per step, stage
+     stats, and one torch.profiler trace of a tiled step (``hands_profile``);
+     the kernel against its plain version on the 12 tiles' candidates
+     (tiles12); then 3 steps of each in f32 on the card and on the CPU: the
+     same track ids, classes and buttons at every step, boxes within 1 px;
+ 11. time the kernel's device time from a torch.profiler trace at
+     poker_labeled, full_chain, batch4, batch16, tiles12 and the example's 6
+     tiles (tiles6_poker_labeled) (each shape's launches
      inside a record_function range; a range without all of its kernel
      events fails), each beside its bound; the wrapper's time per call with
      CUDA events and the plain version at the main path's shape; the frame
@@ -43,8 +62,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      frame's device time by kernel, and one trace of the screenshot with OCR
      (device busy and idle share, the OCR pass's share, recognizer calls per
      kind, the host time of the beam and rescore); print them and a JSON
-     line listing every kernel with its bound;
- 10. print the device line last.
+     line listing every kernel with its bound and its launches on each path;
+ 12. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
 result is printed.
@@ -72,12 +91,19 @@ from manual_yolo_tpu_torch.models import yolov8
 from manual_yolo_tpu_torch.ops import ctc as ctc_ops
 from manual_yolo_tpu_torch.ops import nms as nms_ops
 from manual_yolo_tpu_torch.ops import nms_kernel
-from manual_yolo_tpu_torch.ops.letterbox import letterbox
+from manual_yolo_tpu_torch.config import AppConfig
+from manual_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_batch
+from manual_yolo_tpu_torch.parallel.inference import tiled_frames
 from manual_yolo_tpu_torch.runtime import native, png
+from manual_yolo_tpu_torch.runtime.embedder import default_embedder
+from manual_yolo_tpu_torch.runtime.engine import DetectorEngine
+from manual_yolo_tpu_torch.runtime.hands import HandSessionPipeline
+from manual_yolo_tpu_torch.runtime.live import LiveLoop
 from manual_yolo_tpu_torch.runtime.ocr import field_kind, default_ocr_engine
 from manual_yolo_tpu_torch.runtime.shot import (
     _safe_crop, imread_bgr, load_fused_pipeline, process_screenshot,
 )
+from manual_yolo_tpu_torch.track.deepsort import DeepSortTracker
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DETECTOR = os.path.join(REPO, "weights", "poker_detector.npz")
@@ -486,6 +512,175 @@ def shot_profile(fn) -> dict:
     return out
 
 
+LIVE_FRAMES, LIVE_F32_FRAMES = 20, 5
+HAND_STEPS, HAND_F32_STEPS = 8, 3
+BOX_KEYS = frozenset({"bbox", "coordinates", "x1", "y1", "x2", "y2"})
+
+
+def shifted_frames(frame: np.ndarray, n: int) -> list:
+    """The frame, then copies shifted by up to 3 px, so tracks persist."""
+    return [np.roll(frame, ((i % 5) - 2, (i * 3) % 7 - 3) if i else (0, 0), axis=(0, 1))
+            for i in range(n)]
+
+
+def compare_nested(tag: str, got, ref, path: str = "", box: bool = False, moved=None) -> list:
+    """Fail unless two JSON-like results agree: box corners (under a key of
+    BOX_KEYS) within 1 px, floats within 1e-3, all else equal. Returns the
+    corners that differ, as [(path, got, ref)]."""
+    moved = [] if moved is None else moved
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(ref):
+            fail(f"{tag}{path}: {got} vs {ref}")
+        for k in ref:
+            compare_nested(tag, got[k], ref[k], f"{path}.{k}", box or k in BOX_KEYS, moved)
+    elif isinstance(ref, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(ref):
+            fail(f"{tag}{path}: {got} vs {ref}")
+        for i, (g, r) in enumerate(zip(got, ref)):
+            compare_nested(tag, g, r, f"{path}[{i}]", box, moved)
+    elif isinstance(ref, (bool, str)) or ref is None:
+        if got != ref:
+            fail(f"{tag}{path}: {got!r} vs {ref!r}")
+    elif isinstance(ref, (int, np.integer)):
+        if not isinstance(got, (int, np.integer)) or abs(int(got) - int(ref)) > (1 if box else 0):
+            fail(f"{tag}{path}: {got} vs {ref}")
+        if got != ref:
+            moved.append((path, int(got), int(ref)))
+    elif abs(float(got) - float(ref)) > 1e-3:
+        fail(f"{tag}{path}: {got} vs {ref}")
+    return moved
+
+
+def live_run(pipeline, ocr, frames, out_dir: str, interval: float = 0.5):
+    """LiveLoop over ``frames`` as cli/detect.py runs it; returns (loop, ms
+    per step, detections.jsonl rows less timestamps, {game file: JSON})."""
+    loop = LiveLoop(pipeline=pipeline, output_dir=out_dir, ocr=ocr,
+                    game_update_interval=interval)
+    ms = []
+    try:
+        for frame in frames:
+            t0 = time.perf_counter()
+            loop.step(frame)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        loop.close()
+    with open(os.path.join(out_dir, "detections.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        r.pop("timestamp")
+    games = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("game_"):
+            with open(os.path.join(out_dir, name)) as f:
+                games[name] = json.load(f)
+    return loop, ms, rows, games
+
+
+class BatchCounter:
+    """Wraps an engine's detect_batch: records (B, kernel launches) per call."""
+
+    def __init__(self, engine):
+        self.inner, self.calls = engine.detect_batch, []
+        engine.detect_batch = self
+
+    def __call__(self, frames):
+        before = nms_kernel.nms_keep.launches
+        out = self.inner(frames)
+        self.calls.append((len(frames), nms_kernel.nms_keep.launches - before))
+        return out
+
+
+def hand_session(device, dtype: str, ocr, out_dir: str) -> HandSessionPipeline:
+    """The hand session as cli/pipe.py builds it from the config's defaults."""
+    cfg = AppConfig()
+    engine = DetectorEngine.from_npz(DETECTOR, imgsz=cfg.pipe.yolo_imgsz, conf=cfg.pipe.yolo_conf,
+                                     compute_dtype=dtype, device=device)
+    embedder = default_embedder(cfg.track.embedder_weights, device=device)
+    if embedder is None:
+        fail("weights/reid_embedder.npz is missing")
+    tracker = DeepSortTracker(
+        max_age=cfg.pipe.deepsort_max_age, n_init=cfg.pipe.deepsort_n_init,
+        max_cosine_distance=cfg.pipe.deepsort_max_cosine_distance,
+        nn_budget=cfg.pipe.deepsort_nn_budget, embedder=embedder)
+    return HandSessionPipeline(engine=engine, output_dir=out_dir, hand_timeout=cfg.pipe.hand_timeout,
+                               tile=cfg.pipe.tile, tile_overlap=cfg.pipe.tile_overlap, ocr=ocr,
+                               tracker=tracker)
+
+
+def hand_steps(hp: HandSessionPipeline, frames) -> tuple:
+    """Step the session over ``frames``; returns (infos, ms, tiles, launches)
+    per step. A step's first detect_batch call is the full frame (B=1); a
+    second is its tiles. On the card, fails unless each call was one launch."""
+    counter = hp.engine.detect_batch
+    infos, ms, tiles, launches = [], [], [], []
+    for frame in frames:
+        n_calls, before = len(counter.calls), nms_kernel.nms_keep.launches
+        t0 = time.perf_counter()
+        infos.append(hp.step(frame))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        calls = counter.calls[n_calls:]
+        tiles.append(sum(b for b, _ in calls[1:]))
+        launches.append(nms_kernel.nms_keep.launches - before)
+        if hp.engine.device.type == "cuda" and (
+                any(n != 1 for _, n in calls) or launches[-1] != len(calls)):
+            fail(f"a hand step made {launches[-1]} launches for its batches {calls}")
+    return infos, ms, tiles, launches
+
+
+def step_view(info: dict) -> dict:
+    """What the hand session's step shows its user: active tracks, buttons
+    and the input field."""
+    return {"active": [dict(t, bbox=list(t["bbox"])) for t in info["active"]],
+            "buttons": info["buttons"], "input": info["input"]}
+
+
+def tile_candidates(engine, frame: np.ndarray, tile: int, overlap: float) -> nms_ops.Candidates:
+    """The hand session's NMS input for a frame's tiles, computed on the card."""
+    tiles, _ = tiled_frames(frame, tile, overlap)
+    with torch.inference_mode():
+        rgb = torch.from_numpy(tiles).to(engine.device).flip(-1)
+        canvas, _, _ = letterbox_batch(rgb, (engine.imgsz, engine.imgsz))
+        boxes, scores = yolov8.decode_boxes(engine.model(canvas), (engine.imgsz, engine.imgsz),
+                                            engine.spec.strides)
+        return nms_ops.nms_candidates(boxes, scores, conf_thres=engine.conf, pre_nms=K)
+
+
+def trace_once(fn, tag: str) -> dict:
+    """One torch.profiler trace of ``fn``: wall, device busy, idle share and
+    the top device items (device copies of record_function ranges left out)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        with record_function(tag):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    host = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    spans = [e for e in host if e.name == tag]
+    if len(spans) != 1:
+        fail(f"the trace holds {len(spans)} {tag} ranges, not 1")
+    lo, hi = spans[0].time_range.start, spans[0].time_range.end
+    ranges = {e.name for e in host}
+    dev = [e for e in events if str(e.device_type).endswith("CUDA") and e.name not in ranges
+           and lo <= e.time_range.start <= hi]
+    if not dev:
+        fail(f"the {tag} trace holds no device events")
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "device_events": len(dev),
+            "top_device": sorted(([n[:80], t] for n, t in by_name.items()), key=lambda x: -x[1])[:8]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -604,9 +799,97 @@ def main() -> int:
     # 8. the main path went through the kernel
     if launches < 2:
         fail(f"nms_keep launched {launches} times on the main path, expected 2")
+    launches_by_path = {"screenshot": launches}
 
-    # 9. timings: the kernel at four shapes, the rest at the main path's
-    timed = {name: cases[name] for name in ("poker_labeled", "full_chain", "batch4", "batch16")}
+    # 9. the live loop as cli/detect.py runs it: bf16 detector, conf 0.25, OCR on
+    cfg = AppConfig()
+    live_frames = shifted_frames(frame_img, LIVE_FRAMES)
+    gpu_live = dataclasses.replace(gpu, conf=cfg.detector.conf)
+    nms_kernel.nms_keep.launches = 0
+    loop, live_ms, live_rows, _ = live_run(gpu_live, gpu_ocr, live_frames, os.path.join(tmp, "live"))
+    torch.cuda.synchronize()
+    launches_by_path["live"] = nms_kernel.nms_keep.launches
+    if launches_by_path["live"] != LIVE_FRAMES:
+        fail(f"the live loop made {launches_by_path['live']} launches over {LIVE_FRAMES} frames")
+    if loop.errors or gpu_ocr.errors:
+        fail(f"the live loop caught {loop.errors} errors, OCR {gpu_ocr.errors}")
+    n_dets = [len(r["detections"]) for r in live_rows]
+    if min(n_dets) < 10 or not any(d["ocr_text"] for d in live_rows[-1]["detections"]):
+        fail(f"the live loop found {n_dets} detections per frame, or read no text")
+    tracked = {d["tracker_id"] for d in live_rows[-1]["detections"]} - {-1}
+    print(json.dumps({"live_ms": {"median": statistics.median(live_ms[2:]), "min": min(live_ms[2:]),
+                                  "frames": LIVE_FRAMES, "warmup": 2, "detections": n_dets[-1],
+                                  "tracks_last_frame": len(tracked), "ocr": True,
+                                  "stages": loop.timer.stats()}}))
+    f32_live = {}
+    for name, pipe, ocr_engine in (("card", dataclasses.replace(gpu_f32, conf=cfg.detector.conf), gpu_ocr),
+                                   ("cpu", dataclasses.replace(cpu, conf=cfg.detector.conf), cpu_ocr)):
+        f32_live[name] = live_run(pipe, ocr_engine, live_frames[:LIVE_F32_FRAMES],
+                                  os.path.join(tmp, f"live_{name}"), interval=0.0)
+    moved = compare_nested("live f32 card vs CPU", f32_live["card"][2], f32_live["cpu"][2])
+    compare_nested("live f32 game JSON", f32_live["card"][3], f32_live["cpu"][3], moved=moved)
+    if gpu_ocr.errors or cpu_ocr.errors or f32_live["card"][0].errors or f32_live["cpu"][0].errors:
+        fail("the f32 live runs caught errors")
+    print(json.dumps({"live_f32_vs_cpu": {"frames": LIVE_F32_FRAMES, "games": list(f32_live["cpu"][3]),
+                                          "corners_1px": moved, "equal": True}}))
+
+    # 10. the hand session as cli/pipe.py runs it: imgsz 1280, conf 0.35, tiles, DeepSORT
+    hand_frames = {"seeded_1200x1920": frame_rand, "poker_labeled": frame_img}
+    hp = hand_session(dev, "bfloat16", gpu_ocr, os.path.join(tmp, "hands"))
+    BatchCounter(hp.engine)
+    nms_kernel.nms_keep.launches = 0
+    hands = {name: hand_steps(hp, shifted_frames(f, HAND_STEPS)) for name, f in hand_frames.items()}
+    torch.cuda.synchronize()
+    launches_by_path["hands"] = nms_kernel.nms_keep.launches
+    batched = hp.engine.detect_batch.calls
+    if not any(b == 12 for b, _ in batched) or any(n != 1 for _, n in batched):
+        fail(f"the hand session's (B, launches) per batch are {batched}: no 12-tile "
+             "batch, or not one launch each")
+    if hands["seeded_1200x1920"][2][0] != 12:
+        fail(f"the seeded frame's tiled step ran {hands['seeded_1200x1920'][2][0]} tiles, not 12")
+    if launches_by_path["hands"] != sum(sum(h[3]) for h in hands.values()):
+        fail("the hand session's launches do not add up over its steps")
+    if gpu_ocr.errors:
+        fail(f"OCR caught {gpu_ocr.errors} errors in the hand session")
+    print(json.dumps({"hands_ms": {
+        name: {"median": statistics.median(h[1][2:]), "min": min(h[1][2:]), "steps": HAND_STEPS,
+               "warmup": 2, "tiles_per_step": h[2], "nms_keep_launches_per_step": h[3],
+               "detections_last_step": len(h[0][-1]["detections"]),
+               "active_last_step": len(h[0][-1]["active"]),
+               "buttons_last_step": len(h[0][-1]["buttons"])}
+        for name, h in hands.items()}}))
+    print(json.dumps({"hands_stages": hp.timer.stats()}))
+    hands_prof = trace_once(lambda: hp.step(frame_rand), "hand_step")
+    print(json.dumps({"hands_profile": dict(hands_prof, frame="seeded_1200x1920")}))
+    tcand = tile_candidates(hp.engine, frame_rand, hp.tile, hp.tile_overlap)
+    tiles12 = (tcand.nms_boxes.contiguous(), tcand.valid.contiguous())
+    ecand = tile_candidates(hp.engine, frame_img, hp.tile, hp.tile_overlap)
+    for name, (b, v) in (("tiles12", tiles12),
+                         ("tiles6_poker_labeled", (ecand.nms_boxes.contiguous(), ecand.valid.contiguous()))):
+        got, ref = nms_kernel.nms_keep(b, v, IOU), nms_kernel.nms_keep_plain(b, v, IOU)
+        bad = int((got != ref).sum())
+        print(f"nms_keep {name}: B={b.shape[0]} K={b.shape[1]} valid={int(v.sum())} "
+              f"kept={int(got.sum())} mismatches={bad}")
+        mismatches += bad
+    if mismatches:
+        fail(f"kernel and plain keep masks differ in {mismatches} entries on the tiles")
+    f32_hands = {}
+    for name, device, ocr_engine in (("card", dev, gpu_ocr), ("cpu", "cpu", cpu_ocr)):
+        steps = []
+        for fname, f in hand_frames.items():
+            session = hand_session(device, "float32", ocr_engine, os.path.join(tmp, f"hands_{name}_{fname}"))
+            BatchCounter(session.engine)
+            steps += [step_view(i) for i in hand_steps(session, shifted_frames(f, HAND_F32_STEPS))[0]]
+        f32_hands[name] = steps
+    moved = compare_nested("hands f32 card vs CPU", f32_hands["card"], f32_hands["cpu"])
+    print(json.dumps({"hands_f32_vs_cpu": {"steps": len(f32_hands["cpu"]), "corners_1px": moved,
+                                           "equal": True}}))
+
+    # 11. timings: the kernel at six shapes, the rest at the main path's
+    cases["tiles12"] = tiles12
+    cases["tiles6_poker_labeled"] = (ecand.nms_boxes.contiguous(), ecand.valid.contiguous())
+    timed = {name: cases[name] for name in ("poker_labeled", "full_chain", "batch4", "batch16",
+                                            "tiles12", "tiles6_poker_labeled")}
     ms_by_shape = kernel_ms({name: (lambda b=b, v=v: nms_kernel.nms_keep(b, v, IOU))
                              for name, (b, v) in timed.items()})
     bound_by_shape = {name: bound(b, v, nms_kernel.nms_keep_plain(b, v, IOU))
@@ -663,7 +946,8 @@ def main() -> int:
         "route": "cuda",
         "source": "manual_yolo_tpu_torch/csrc/nms_keep.cu",
         "replaces": "manual_yolo_tpu/ops/pallas_nms.py:36",
-        "launches": launches,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
         "ms": ms,
@@ -675,7 +959,7 @@ def main() -> int:
         "library_ms": None,
     }]}))
 
-    # 10. the device line
+    # 12. the device line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

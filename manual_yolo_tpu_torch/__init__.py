@@ -14,9 +14,16 @@ The ported slices make up the single-screenshot path:
   (CRNN ensemble on the card, CTC prefix beam and rescore in host C++,
   CRAFT multi-line fallback) -> flat result JSON
 
+and the two continuous loops: the live loop (``runtime/live.py``: that path
+per frame, then ByteTrack, the game state and a JSONL log) and the hand
+session (``runtime/hands.py``: ``runtime/engine.py`` at imgsz 1280, a frame's
+tiles as one batch through one NMS-kernel launch, DeepSORT with the
+appearance embedder, game-id OCR and per-hand records).
+
 Entry points (``runtime.shot.load_fused_pipeline``,
-``runtime.ocr.default_ocr_engine``, ``cli.shot``) run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+``runtime.ocr.default_ocr_engine``, ``runtime.engine.DetectorEngine.from_npz``,
+``runtime.embedder.default_embedder``, ``cli.shot``, ``cli.detect``,
+``cli.pipe``) run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

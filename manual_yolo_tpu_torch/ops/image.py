@@ -274,6 +274,62 @@ def cv_resize(img: np.ndarray, out_hw: Tuple[int, int], cubic: bool) -> np.ndarr
     return np.einsum("oh,hwc->owc", wy, np.einsum("pw,hwc->hpc", wx, x))
 
 
+RESIZE_COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS: coefficients in units of 1/2048
+
+
+def _cv_linear_fixed(n_in: int, n_out: int):
+    """One axis of cv2's fixed-point INTER_LINEAR: (index of the first source
+    pixel, its weight, the next pixel's weight), weights in 1/2048. The
+    position is f32 of an f64 product, the weights are rounded half to
+    even, as cv2 computes them."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    i = np.floor(f).astype(np.int64)
+    f = f - i.astype(np.float32)
+    edge = (i < 0) | (i >= n_in - 1)
+    f = np.where(edge, np.float32(0.0), f)
+    i = np.clip(i, 0, n_in - 1)
+    one = np.float32(1 << RESIZE_COEF_BITS)
+    w0 = np.rint((np.float32(1.0) - f) * one).astype(np.int64)
+    w1 = np.rint(f * one).astype(np.int64)
+    return i, w0, w1
+
+
+def cv_resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """Host ``cv2.resize(img, (out_w, out_h), interpolation=INTER_LINEAR)``
+    for uint8 (H, W) or (H, W, C) images, bit for bit.
+
+    cv2's 8-bit path is fixed point: a horizontal pass of integer sums with
+    11-bit weights, then a vertical pass that keeps 12 bits of each row sum,
+    multiplies by the 11-bit row weight, drops 16 bits, and rounds the last
+    2 away (``VResizeLinear``'s uint8 specialisation). Source rows are
+    clamped at the edges; edge columns take one pixel at full weight."""
+    x = np.asarray(img)
+    if x.dtype != np.uint8:
+        raise TypeError(f"cv_resize_u8 takes uint8 images, got {x.dtype}")
+    h, w = x.shape[:2]
+    out_h, out_w = out_hw
+    if (out_h, out_w) == (h, w):
+        return x.copy()
+    xi, xw0, xw1 = _cv_linear_fixed(w, out_w)
+    xj = np.minimum(xi + 1, w - 1)
+    shape = (1, out_w) + (1,) * (x.ndim - 2)
+    s = x.astype(np.int64)
+    rows = s[:, xi] * xw0.reshape(shape) + s[:, xj] * xw1.reshape(shape)
+    scale = 1.0 / (out_h / h)
+    fy = ((np.arange(out_h, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    yi = np.floor(fy).astype(np.int64)
+    fy = fy - yi.astype(np.float32)
+    one = np.float32(1 << RESIZE_COEF_BITS)
+    yw0 = np.rint((np.float32(1.0) - fy) * one).astype(np.int64)
+    yw1 = np.rint(fy * one).astype(np.int64)
+    r0 = rows[np.clip(yi, 0, h - 1)] >> 4
+    r1 = rows[np.clip(yi + 1, 0, h - 1)] >> 4
+    shape = (out_h,) + (1,) * (x.ndim - 1)
+    out = (((yw0.reshape(shape) * r0) >> 16) + ((yw1.reshape(shape) * r1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 def enhance_for_ocr_standard(gray: torch.Tensor) -> torch.Tensor:
     """'standard' enhancement: CLAHE clip=2."""
     return clahe(gray, clip_limit=2.0)

@@ -34,29 +34,47 @@ def letterbox_params(
     return r, new_h, new_w, top, left
 
 
+def letterbox_batch(
+    frames: torch.Tensor,
+    dst_hw: Tuple[int, int],
+    scaleup: bool = True,
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
+    """Letterbox a (B, H, W, 3) batch of same-shape uint8/float frames to
+    (B, H_t, W_t, 3) in [0,1], in one pass: the JAX package's ``vmap`` of
+    ``letterbox`` (``manual_yolo_tpu/runtime/engine.py:63``).
+
+    Returns (canvases, ratio, (pad_top, pad_left)); ratio and pads are Python
+    values, shared by the frames, for the inverse box mapping.
+    """
+    b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    H, W = dst_hw
+    r, new_h, new_w, top, left = letterbox_params((h, w), (H, W), scaleup)
+    img = frames.to(dtype)
+    if (new_h, new_w) != (h, w):
+        img = F.interpolate(
+            img.permute(0, 3, 1, 2), size=(new_h, new_w), mode="bilinear",
+            align_corners=False, antialias=False,
+        ).permute(0, 2, 3, 1)
+    canvas = torch.full((b, H, W, 3), PAD_VALUE, dtype=dtype, device=frames.device)
+    canvas[:, top:top + new_h, left:left + new_w] = img
+    return canvas / 255.0, r, (top, left)
+
+
 def letterbox(
     frame: torch.Tensor,
     dst_hw: Tuple[int, int],
     scaleup: bool = True,
     dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, float, Tuple[int, int]]:
-    """Letterbox a (H, W, 3) uint8/float frame to (H_t, W_t, 3) in [0,1].
+    """Letterbox a (H, W, 3) uint8/float frame to (H_t, W_t, 3) in [0,1]:
+    ``letterbox_batch`` at B=1.
 
     Returns (canvas, ratio, (pad_top, pad_left)); ratio and pads are Python
     values for the inverse box mapping.
     """
-    h, w = frame.shape[0], frame.shape[1]
-    H, W = dst_hw
-    r, new_h, new_w, top, left = letterbox_params((h, w), (H, W), scaleup)
-    img = frame.to(dtype)
-    if (new_h, new_w) != (h, w):
-        img = F.interpolate(
-            img.permute(2, 0, 1)[None], size=(new_h, new_w), mode="bilinear",
-            align_corners=False, antialias=False,
-        )[0].permute(1, 2, 0)
-    canvas = torch.full((H, W, 3), PAD_VALUE, dtype=dtype, device=frame.device)
-    canvas[top:top + new_h, left:left + new_w] = img
-    return canvas / 255.0, r, (top, left)
+    canvas, r, pad = letterbox_batch(frame[None], dst_hw, scaleup, dtype)
+    return canvas[0], r, pad
 
 
 def unletterbox_boxes(

@@ -14,6 +14,7 @@ The row filters are undone in C++ (``csrc/host.cpp::png_unfilter``, bound in
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -156,3 +157,10 @@ def read_png(path: str) -> np.ndarray:
             gray = gray * np.uint8(255 // ((1 << depth) - 1))
         return np.repeat(gray[..., None], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def imread_bgr(path: str) -> np.ndarray:
+    """Read an image file as (H, W, 3) uint8 BGR, as ``cv2.imread`` returns it."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"cannot read image: {path}")
+    return np.ascontiguousarray(read_png(path)[..., ::-1])

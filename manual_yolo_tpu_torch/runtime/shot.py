@@ -23,24 +23,14 @@ import numpy as np
 import torch
 
 from manual_yolo_tpu_torch.core.device import resolve_device
-from manual_yolo_tpu_torch.core.serialization import load_params
 from manual_yolo_tpu_torch.game import schema, taxonomy
 from manual_yolo_tpu_torch.game.accumulate import merge_detected_values
 from manual_yolo_tpu_torch.game.text import suit_char
-from manual_yolo_tpu_torch.models import yolov8
 from manual_yolo_tpu_torch.models.classifier import RankClassifier
+from manual_yolo_tpu_torch.runtime.engine import load_detector
 from manual_yolo_tpu_torch.runtime.ocr import OCREngine, field_kind
 from manual_yolo_tpu_torch.runtime.pipeline import FusedPipeline
-from manual_yolo_tpu_torch.runtime.png import read_png
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def imread_bgr(path: str) -> np.ndarray:
-    """Read an image file as (H, W, 3) uint8 BGR, as ``cv2.imread`` returns it."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"cannot read image: {path}")
-    return np.ascontiguousarray(read_png(path)[..., ::-1])
+from manual_yolo_tpu_torch.runtime.png import imread_bgr
 
 
 def _safe_crop(frame: np.ndarray, bbox: List[int]) -> np.ndarray:
@@ -167,16 +157,8 @@ def load_fused_pipeline(
 
     The detector runs in ``compute_dtype`` ("bfloat16" or "float32"; any
     other value raises ``ValueError``); the classifier always in f32."""
-    if compute_dtype not in _DTYPES:
-        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
+    det_model, names = load_detector(detector_weights, compute_dtype)
     dev = resolve_device(device)
-    det_params, det_meta = load_params(detector_weights)
-    sp = det_meta.get("spec", {})
-    det_spec = yolov8.build_spec("detect", sp.get("scale", "n"), int(sp.get("nc", 64)))
-    det_model = yolov8.build_model(det_spec, _DTYPES[compute_dtype])
-    yolov8.load_jax_params(det_model, yolov8.fold_params(det_params, det_spec))
-    names = {int(k): v for k, v in det_meta.get("names", {}).items()} or taxonomy.CLASSES
-
     clf = RankClassifier.from_npz(classifier_weights, device=dev)
     return FusedPipeline(
         det_model=det_model.to(dev).eval(),

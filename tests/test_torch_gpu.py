@@ -1,7 +1,8 @@
 """The port on a CUDA card: the NMS kernel against its plain twin, the bf16
 pipeline on the card against the f32 pipeline on the CPU, the CRNN and the OCR
-engine on the card against the CPU, and the host C++ library against its
-plain twins (built by the card's host).
+engine on the card against the CPU, the host C++ library against its plain
+twins (built by the card's host), and the batched NMS and the detector
+engine's tiled batch, each in one kernel launch.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -23,6 +24,12 @@ from manual_yolo_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain  # noq
 from manual_yolo_tpu_torch.runtime import native, png  # noqa: E402
 from manual_yolo_tpu_torch.runtime import ocr as pt_ocr  # noqa: E402
 from manual_yolo_tpu_torch.runtime import shot as pt_shot  # noqa: E402
+from manual_yolo_tpu_torch.models import yolov8  # noqa: E402
+from manual_yolo_tpu_torch.ops import nms as pt_nms  # noqa: E402
+from manual_yolo_tpu_torch.ops.letterbox import letterbox_batch  # noqa: E402
+from manual_yolo_tpu_torch.parallel.inference import tiled_frames  # noqa: E402
+from manual_yolo_tpu_torch.runtime.engine import DetectorEngine  # noqa: E402
+from torch_loop_cases import nms_batch_inputs  # noqa: E402
 from torch_nms_cases import NMS_CASES, nms_case  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,3 +143,46 @@ def test_read_fields_conf_on_card_matches_cpu(cuda_device):
     assert [t for t, _ in got] == [t for t, _ in ref]
     assert max(abs(c - rc) for (_, c), (_, rc) in zip(got, ref)) <= 1e-3
     assert gpu.errors == 0 and cpu.errors == 0
+
+
+@pytest.mark.gpu
+def test_nms_batch_on_card_matches_cpu_in_one_launch(cuda_device):
+    """A seeded batch with tied scores and an empty frame: the same Detections
+    as the CPU (plain keep mask), from one kernel launch for the 4 frames."""
+    boxes, scores = (torch.from_numpy(x) for x in nms_batch_inputs())
+    before = nms_keep.launches
+    got = pt_nms.nms_batch(boxes.to(cuda_device), scores.to(cuda_device),
+                           conf_thres=0.25, iou_thres=0.6)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    ref = pt_nms.nms_batch(boxes, scores, conf_thres=0.25, iou_thres=0.6)
+    assert int(ref.count[2]) == 0 and int(ref.count[1]) > 10
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame_name", ["seeded_1200x1920", "poker_labeled"])
+def test_detect_batch_of_tiles_is_one_launch(cuda_device, frame_name):
+    """The hand session's tiled step at its defaults (imgsz 1280, conf 0.35,
+    640-px tiles at 0.2): detect_batch makes one launch for all tiles (12 on
+    the seeded frame, 6 on the example), and the keep masks of those tiles'
+    candidates equal the plain twin's."""
+    frame = (np.random.default_rng(0).integers(0, 256, (1200, 1920, 3), dtype=np.uint8)
+             if frame_name == "seeded_1200x1920" else pt_shot.imread_bgr(IMAGE))
+    tiles, _ = tiled_frames(frame, 640, 0.2)
+    assert len(tiles) == (12 if frame_name == "seeded_1200x1920" else 6)
+    engine = DetectorEngine.from_npz(DET, imgsz=1280, conf=0.35, device=cuda_device)
+    before = nms_keep.launches
+    det = engine.detect_batch(tiles)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    assert det.boxes.shape == (len(tiles), 300, 4)
+    with torch.inference_mode():
+        rgb = torch.from_numpy(tiles).to(cuda_device).flip(-1)
+        canvas, _, _ = letterbox_batch(rgb, (1280, 1280))
+        boxes, scores = yolov8.decode_boxes(engine.model(canvas), (1280, 1280), engine.spec.strides)
+        cand = pt_nms.nms_candidates(boxes, scores, conf_thres=0.35)
+        kb, kv = cand.nms_boxes.contiguous(), cand.valid.contiguous()
+        assert torch.equal(nms_keep(kb, kv, 0.7), nms_keep_plain(kb, kv, 0.7))
+
