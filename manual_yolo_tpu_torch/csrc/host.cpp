@@ -1,5 +1,7 @@
-// Host-side C++ of the PyTorch port: CTC decoding for the OCR engine and the
-// PNG row unfilter.
+// Host-side C++ of the PyTorch port: CTC decoding for the OCR engine, the
+// PNG row unfilter, and the serving path's frame ring, JSONL appender and
+// pixel loops (BGRA->BGR, crop, odd-integer decimation, cv2's uint8 linear
+// resize).
 //
 // Built by runtime/native.py with `g++ -O2 -shared -fPIC` at first use and
 // bound with ctypes (plain C interface, no Python headers). Each function has
@@ -8,13 +10,23 @@
 // `prefix_beam_decode_plain`), png_unfilter against runtime/png.py
 // (`_unfilter`).
 //
-// The CTC functions are a copy of native/runtime.cpp (the JAX package's host
-// runtime): the same algorithms and the same pruning rules.
+// The CTC functions, FrameRing, JsonLog and the pixel loops are a copy of
+// native/runtime.cpp (the JAX package's host runtime): the same algorithms,
+// the same pruning rules and the same byte layouts. Their plain twins live in
+// runtime/native.py (PlainFrameRing, PlainJsonLog, bgra_to_bgr_plain,
+// crop_u8_plain, decimate_u8_plain); resize_u8's is ops/image.py's
+// cv_resize_u8.
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
+#include <fcntl.h>
+#include <mutex>
+#include <new>
+#include <unistd.h>
 #include <vector>
 
 extern "C" {
@@ -204,6 +216,250 @@ int32_t png_unfilter(const uint8_t *raw, int32_t height, int32_t stride,
     prev = cur;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// FrameRing: single-producer single-consumer ring of fixed-size frames.
+//
+// Drop-oldest with SPSC safety: the producer never writes tail (each index
+// has one writer). Every slot carries a seqlock word, 2*h+1 while item h is
+// being written and 2*h+2 once stable, so when the producer wraps over an
+// unread slot the consumer sees the overwrite (the word differs before and
+// after its memcpy) and skips forward instead of reading a torn frame.
+
+struct FrameRing {
+  uint8_t *data;
+  std::atomic<uint64_t> *seq;  // per-slot seqlock word
+  int64_t slot_bytes;
+  int32_t slots;
+  std::atomic<uint64_t> head;     // next write sequence (producer-owned)
+  std::atomic<uint64_t> tail;     // next read sequence (consumer-owned)
+  std::atomic<uint64_t> dropped;  // approximate under wrap (stats only)
+};
+
+FrameRing *fr_create(int32_t slots, int64_t slot_bytes) {
+  auto *r = new (std::nothrow) FrameRing();
+  if (!r) return nullptr;
+  r->data = new (std::nothrow) uint8_t[(size_t)slots * slot_bytes];
+  r->seq = new (std::nothrow) std::atomic<uint64_t>[slots];
+  if (!r->data || !r->seq) {
+    delete[] r->data;
+    delete[] r->seq;
+    delete r;
+    return nullptr;
+  }
+  r->slot_bytes = slot_bytes;
+  r->slots = slots;
+  for (int32_t i = 0; i < slots; ++i) r->seq[i].store(0);
+  r->head.store(0);
+  r->tail.store(0);
+  r->dropped.store(0);
+  return r;
+}
+
+void fr_destroy(FrameRing *r) {
+  if (!r) return;
+  delete[] r->data;
+  delete[] r->seq;
+  delete r;
+}
+
+// Push a frame; if the ring is full, overwrite the oldest (live-feed policy).
+// Returns the sequence number assigned.
+int64_t fr_push(FrameRing *r, const uint8_t *frame) {
+  uint64_t h = r->head.load(std::memory_order_relaxed);
+  uint64_t t = r->tail.load(std::memory_order_acquire);
+  if (h - t >= (uint64_t)r->slots) {
+    r->dropped.fetch_add(1, std::memory_order_relaxed);
+  }
+  uint64_t s = h % r->slots;
+  r->seq[s].store(2 * h + 1, std::memory_order_relaxed);
+  std::atomic_thread_fence(std::memory_order_release);
+  std::memcpy(r->data + s * r->slot_bytes, frame, (size_t)r->slot_bytes);
+  r->seq[s].store(2 * h + 2, std::memory_order_release);
+  r->head.store(h + 1, std::memory_order_release);
+  return (int64_t)h;
+}
+
+// Pop into out: the newest frame (skip_to_latest, which drops the older
+// ones) or the oldest. Returns its sequence number, or -1 if empty.
+int64_t fr_pop(FrameRing *r, uint8_t *out, int32_t skip_to_latest) {
+  uint64_t t = r->tail.load(std::memory_order_relaxed);
+  for (;;) {
+    uint64_t h = r->head.load(std::memory_order_acquire);
+    if (t >= h) {
+      r->tail.store(t, std::memory_order_relaxed);
+      return -1;
+    }
+    if (skip_to_latest && h - t > 1) {
+      r->dropped.fetch_add(h - 1 - t, std::memory_order_relaxed);
+      t = h - 1;
+    }
+    uint64_t s = t % r->slots;
+    uint64_t s1 = r->seq[s].load(std::memory_order_acquire);
+    if (s1 == 2 * t + 2) {
+      std::memcpy(out, r->data + s * r->slot_bytes, (size_t)r->slot_bytes);
+      std::atomic_thread_fence(std::memory_order_acquire);
+      uint64_t s2 = r->seq[s].load(std::memory_order_relaxed);
+      if (s1 == s2) {
+        r->tail.store(t + 1, std::memory_order_release);
+        return (int64_t)t;
+      }
+    }
+    // item t was overwritten (or is mid-write by a wrapped producer): skip
+    // it; the producer already counted the drop
+    t += 1;
+  }
+}
+
+int64_t fr_dropped(FrameRing *r) { return (int64_t)r->dropped.load(); }
+
+int64_t fr_available(FrameRing *r) {
+  uint64_t h = r->head.load(std::memory_order_acquire);
+  uint64_t t = r->tail.load(std::memory_order_acquire);
+  uint64_t n = h - t;
+  if (n > (uint64_t)r->slots) n = (uint64_t)r->slots;
+  return (int64_t)n;
+}
+
+// ---------------------------------------------------------------------------
+// JsonLog: append-only JSONL, one write() per line so that each line lands
+// whole for readers on the same filesystem.
+
+struct JsonLog {
+  int fd;
+  std::mutex mu;
+  uint64_t lines;
+};
+
+JsonLog *jl_open(const char *path) {
+  int fd = ::open(path, O_WRONLY | O_CREAT | O_APPEND, 0644);
+  if (fd < 0) return nullptr;
+  auto *j = new (std::nothrow) JsonLog();
+  if (!j) {
+    ::close(fd);
+    return nullptr;
+  }
+  j->fd = fd;
+  j->lines = 0;
+  return j;
+}
+
+// Appends one line and its '\n'. Returns the bytes written, or -1.
+int64_t jl_append(JsonLog *j, const char *line, int64_t len) {
+  std::lock_guard<std::mutex> g(j->mu);
+  char stackbuf[8192];
+  char *buf = stackbuf;
+  bool heap = (len + 1) > (int64_t)sizeof(stackbuf);
+  if (heap) buf = new (std::nothrow) char[len + 1];
+  if (!buf) return -1;
+  std::memcpy(buf, line, (size_t)len);
+  buf[len] = '\n';
+  ssize_t n = ::write(j->fd, buf, (size_t)len + 1);
+  if (heap) delete[] buf;
+  if (n > 0) j->lines++;
+  return (int64_t)n;
+}
+
+int64_t jl_lines(JsonLog *j) { return (int64_t)j->lines; }
+
+void jl_close(JsonLog *j) {
+  if (!j) return;
+  ::fsync(j->fd);
+  ::close(j->fd);
+  delete j;
+}
+
+// ---------------------------------------------------------------------------
+// Pixel loops
+
+void bgra_to_bgr(const uint8_t *src, uint8_t *dst, int64_t npix) {
+  for (int64_t i = 0; i < npix; ++i) {
+    dst[i * 3 + 0] = src[i * 4 + 0];
+    dst[i * 3 + 1] = src[i * 4 + 1];
+    dst[i * 3 + 2] = src[i * 4 + 2];
+  }
+}
+
+// Crop [y1,y2) x [x1,x2) of an (h, w, 3) uint8 image into dst (contiguous).
+// Bounds are clamped; returns the number of rows copied.
+int32_t crop_u8(const uint8_t *src, int32_t h, int32_t w, int32_t y1,
+                int32_t x1, int32_t y2, int32_t x2, uint8_t *dst) {
+  if (y1 < 0) y1 = 0;
+  if (x1 < 0) x1 = 0;
+  if (y2 > h) y2 = h;
+  if (x2 > w) x2 = w;
+  if (y2 <= y1 || x2 <= x1) return 0;
+  int32_t cw = x2 - x1;
+  for (int32_t y = y1; y < y2; ++y) {
+    std::memcpy(dst + (size_t)(y - y1) * cw * 3,
+                src + ((size_t)y * w + x1) * 3, (size_t)cw * 3);
+  }
+  return y2 - y1;
+}
+
+// Odd-integer-stride point decimation of an (h, w, 3) uint8 image:
+//   dst[y, x, c] = src[s*y + off, s*x + off, c],  off = (s - 1) / 2.
+// For an odd integer downscale s, cv2's INTER_LINEAR sample position
+// (x + 0.5) * s - 0.5 = s*x + (s-1)/2 is integral, so the bilinear weights
+// fall on one source pixel: this gather is cv2's INTER_LINEAR, byte for byte
+// (the serving letterbox of a 1920x1200 frame onto a 640 canvas is s = 3).
+void decimate_u8(const uint8_t *src, int32_t w, int32_t s, int32_t off,
+                 uint8_t *dst, int32_t oh, int32_t ow) {
+  const size_t s3 = (size_t)s * 3;
+  for (int32_t y = 0; y < oh; ++y) {
+    const uint8_t *srow = src + ((size_t)(s * y + off) * w + off) * 3;
+    uint8_t *drow = dst + (size_t)y * ow * 3;
+    // overlapping 4-byte copies (one load and one store per pixel); the
+    // ascending stores make the 1-byte overlap harmless, and the last pixel
+    // is copied exactly so nothing is written past the row
+    int32_t x = 0;
+    for (; x < ow - 1; ++x) {
+      uint32_t v;
+      std::memcpy(&v, srow + (size_t)x * s3, 4);
+      std::memcpy(drow + (size_t)x * 3, &v, 4);
+    }
+    const uint8_t *p = srow + (size_t)x * s3;
+    drow[x * 3 + 0] = p[0];
+    drow[x * 3 + 1] = p[1];
+    drow[x * 3 + 2] = p[2];
+  }
+}
+
+// cv2's uint8 INTER_LINEAR resize of an (h, w, c) image to (oh, ow, c),
+// fixed point, from the tables of ops/image.py::cv_linear_tables: per output
+// column the source columns x0/x1 and 11-bit weights xw0/xw1, per output row
+// the (clamped) source rows y0/y1 and weights yw0/yw1. The horizontal pass
+// runs once per source row the output reads and keeps 12 bits of each sum
+// (>> 4); the vertical pass multiplies by the row weights, drops 16 bits,
+// adds and rounds by 2 bits, as cv2's VResizeLinear does for uint8. The sums
+// stay below 2^31 (255 * 2049 >> 4, times 2049). y0/y1 are nondecreasing.
+void resize_u8(const uint8_t *src, int32_t w, int32_t c, const int32_t *x0,
+               const int32_t *x1, const int32_t *xw0, const int32_t *xw1,
+               const int32_t *y0, const int32_t *y1, const int32_t *yw0,
+               const int32_t *yw1, uint8_t *dst, int32_t oh, int32_t ow) {
+  const int32_t first = y0[0], last = y1[oh - 1];
+  const size_t n = (size_t)ow * c;
+  std::vector<int32_t> rows((size_t)(last - first + 1) * n);
+  for (int32_t sy = first; sy <= last; ++sy) {
+    const uint8_t *s = src + (size_t)sy * w * c;
+    int32_t *r = rows.data() + (size_t)(sy - first) * n;
+    for (int32_t x = 0; x < ow; ++x) {
+      const uint8_t *pa = s + (size_t)x0[x] * c, *pb = s + (size_t)x1[x] * c;
+      const int32_t wa = xw0[x], wb = xw1[x];
+      for (int32_t k = 0; k < c; ++k) r[(size_t)x * c + k] = (pa[k] * wa + pb[k] * wb) >> 4;
+    }
+  }
+  for (int32_t y = 0; y < oh; ++y) {
+    const int32_t *r0 = rows.data() + (size_t)(y0[y] - first) * n;
+    const int32_t *r1 = rows.data() + (size_t)(y1[y] - first) * n;
+    const int32_t wy0 = yw0[y], wy1 = yw1[y];
+    uint8_t *d = dst + (size_t)y * n;
+    for (size_t i = 0; i < n; ++i) {
+      const int32_t v = (((wy0 * r0[i]) >> 16) + ((wy1 * r1[i]) >> 16) + 2) >> 2;
+      d[i] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
 }
 
 }  // extern "C"

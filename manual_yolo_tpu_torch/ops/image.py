@@ -295,6 +295,23 @@ def _cv_linear_fixed(n_in: int, n_out: int):
     return i, w0, w1
 
 
+def cv_linear_tables(h: int, w: int, out_h: int, out_w: int):
+    """The fixed-point tables of cv2's uint8 INTER_LINEAR from (h, w) to
+    (out_h, out_w): per output column the two source columns and their
+    11-bit weights, per output row the two source rows (clamped) and theirs.
+    ``cv_resize_u8`` and the host library's ``resize_u8`` both read them."""
+    xi, xw0, xw1 = _cv_linear_fixed(w, out_w)
+    xj = np.minimum(xi + 1, w - 1)
+    scale = 1.0 / (out_h / h)
+    fy = ((np.arange(out_h, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    yi = np.floor(fy).astype(np.int64)
+    fy = fy - yi.astype(np.float32)
+    one = np.float32(1 << RESIZE_COEF_BITS)
+    yw0 = np.rint((np.float32(1.0) - fy) * one).astype(np.int64)
+    yw1 = np.rint(fy * one).astype(np.int64)
+    return xi, xj, xw0, xw1, np.clip(yi, 0, h - 1), np.clip(yi + 1, 0, h - 1), yw0, yw1
+
+
 def cv_resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     """Host ``cv2.resize(img, (out_w, out_h), interpolation=INTER_LINEAR)``
     for uint8 (H, W) or (H, W, C) images, bit for bit.
@@ -303,7 +320,8 @@ def cv_resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     11-bit weights, then a vertical pass that keeps 12 bits of each row sum,
     multiplies by the 11-bit row weight, drops 16 bits, and rounds the last
     2 away (``VResizeLinear``'s uint8 specialisation). Source rows are
-    clamped at the edges; edge columns take one pixel at full weight."""
+    clamped at the edges; edge columns take one pixel at full weight. The
+    plain twin of ``runtime/native.py::resize_u8``."""
     x = np.asarray(img)
     if x.dtype != np.uint8:
         raise TypeError(f"cv_resize_u8 takes uint8 images, got {x.dtype}")
@@ -311,20 +329,12 @@ def cv_resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     out_h, out_w = out_hw
     if (out_h, out_w) == (h, w):
         return x.copy()
-    xi, xw0, xw1 = _cv_linear_fixed(w, out_w)
-    xj = np.minimum(xi + 1, w - 1)
+    xi, xj, xw0, xw1, y0, y1, yw0, yw1 = cv_linear_tables(h, w, out_h, out_w)
     shape = (1, out_w) + (1,) * (x.ndim - 2)
     s = x.astype(np.int64)
     rows = s[:, xi] * xw0.reshape(shape) + s[:, xj] * xw1.reshape(shape)
-    scale = 1.0 / (out_h / h)
-    fy = ((np.arange(out_h, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
-    yi = np.floor(fy).astype(np.int64)
-    fy = fy - yi.astype(np.float32)
-    one = np.float32(1 << RESIZE_COEF_BITS)
-    yw0 = np.rint((np.float32(1.0) - fy) * one).astype(np.int64)
-    yw1 = np.rint(fy * one).astype(np.int64)
-    r0 = rows[np.clip(yi, 0, h - 1)] >> 4
-    r1 = rows[np.clip(yi + 1, 0, h - 1)] >> 4
+    r0 = rows[y0] >> 4
+    r1 = rows[y1] >> 4
     shape = (out_h,) + (1,) * (x.ndim - 1)
     out = (((yw0.reshape(shape) * r0) >> 16) + ((yw1.reshape(shape) * r1) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)

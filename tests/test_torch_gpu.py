@@ -1,8 +1,10 @@
 """The port on a CUDA card: the NMS kernel against its plain twin, the bf16
 pipeline on the card against the f32 pipeline on the CPU, the CRNN and the OCR
 engine on the card against the CPU, the host C++ library against its plain
-twins (built by the card's host), and the batched NMS and the detector
-engine's tiled batch, each in one kernel launch.
+twins (built by the card's host), the batched NMS and the detector
+engine's tiled batch, each in one kernel launch, and the serving
+BatchStream: one launch per tick, and its f32 rank reads equal to the CPU's
+over 20 pipelined ticks.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -10,6 +12,7 @@ file needs no JAX (the card's host has none), so on that host it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -29,11 +32,15 @@ from manual_yolo_tpu_torch.ops import nms as pt_nms  # noqa: E402
 from manual_yolo_tpu_torch.ops.letterbox import letterbox_batch  # noqa: E402
 from manual_yolo_tpu_torch.parallel.inference import tiled_frames  # noqa: E402
 from manual_yolo_tpu_torch.runtime.engine import DetectorEngine  # noqa: E402
+from manual_yolo_tpu_torch.cli.serve import table_sim_source  # noqa: E402
+from manual_yolo_tpu_torch.ops.image import cv_resize_u8  # noqa: E402
+from manual_yolo_tpu_torch.runtime.serving import load_batch_stream  # noqa: E402
 from torch_loop_cases import nms_batch_inputs  # noqa: E402
 from torch_nms_cases import NMS_CASES, nms_case  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = os.path.join(REPO, "weights", "poker_detector.npz")
+DET_N = os.path.join(REPO, "weights", "poker_detector_n.npz")
 CLS = os.path.join(REPO, "weights", "rank_classifier_matched.npz")
 IMAGE = os.path.join(REPO, "docs", "examples", "poker_labeled.png")
 
@@ -105,7 +112,8 @@ def test_crnn_on_card_matches_cpu(cuda_device, weights, img_h):
 @pytest.mark.gpu
 def test_host_library_matches_plain_twins(cuda_device):
     """The card host's g++ build of csrc/host.cpp: CTC beam and scores against
-    the numpy twins, the PNG unfilter against _unfilter on all filter types."""
+    the numpy twins, the PNG unfilter against _unfilter on all filter types,
+    the 3:1 decimation and the uint8 linear resize against theirs."""
     rng = np.random.default_rng(3)
     for _ in range(4):
         logp = torch.log_softmax(torch.from_numpy(
@@ -120,6 +128,13 @@ def test_host_library_matches_plain_twins(cuda_device):
     rows[:, 0] = np.arange(h) % 5
     np.testing.assert_array_equal(native.png_unfilter(rows.reshape(-1), h, w * bpp, bpp),
                                   png._unfilter(rows.reshape(-1), h, w, bpp).reshape(h, -1))
+    frame = rng.integers(0, 256, (1200, 1920, 3), dtype=np.uint8)
+    dst = np.empty((400, 640, 3), np.uint8)
+    assert native.decimate_u8_into(frame, dst, 3)
+    np.testing.assert_array_equal(dst, native.decimate_u8_plain(frame, 3))
+    for out in [(427, 640), (64, 91), (2000, 3000)]:
+        crop = frame[:out[0] // 2 + 7, :out[1] // 3 + 5]
+        np.testing.assert_array_equal(native.resize_u8(crop, out), cv_resize_u8(crop, out))
 
 
 def _text_crop(rng, h, w):
@@ -186,3 +201,129 @@ def test_detect_batch_of_tiles_is_one_launch(cuda_device, frame_name):
         kb, kv = cand.nms_boxes.contiguous(), cand.valid.contiguous()
         assert torch.equal(nms_keep(kb, kv, 0.7), nms_keep_plain(kb, kv, 0.7))
 
+
+
+def _fleet_ticks(tables: int, ticks: int):
+    """cli/serve.py's table-sim fleet from the example at 1200x1920."""
+    base = cv_resize_u8(pt_shot.imread_bgr(IMAGE), (1200, 1920))
+    sources = [table_sim_source(base, seed=i) for i in range(tables)]
+    return [[next(src) for src in sources] for _ in range(ticks)]
+
+
+@pytest.mark.gpu
+def test_batch_stream_tick_is_one_launch(cuda_device):
+    """Every tick (raw, skip with memo, slots, a dense change) is one forward
+    and one keep-mask launch for all tables."""
+    base = _fleet_ticks(4, 1)[0]
+    rep = [base[0].copy()] + base[1:]
+    rep[0][100:200, 300:400] = 0
+    bright = [np.clip(f.astype(np.int16) + 3, 0, 255).astype(np.uint8) for f in base]
+    with load_batch_stream(DET_N, CLS, batch=4, device=cuda_device) as s:
+        for i, frames in enumerate([base, base, rep, bright]):
+            before = nms_keep.launches
+            s.submit_batch(frames)
+            s.collect_batch()
+            assert nms_keep.launches == before + 1, i
+        assert s.mode_counts["raw"] == 2 and s.mode_counts["skip"] == 1
+        assert s.mode_counts["slots"] == 1 and s.memo_hits == 1
+
+
+def _pipelined(stream, ticks):
+    """cli/serve.py's loop: collect once more than 2 ticks are in flight, so
+    the finisher's f32 classifier runs while the dispatcher's f32 detector
+    runs on another thread."""
+    out = []
+    for frames in ticks:
+        stream.submit_batch(frames)
+        if stream.in_flight > 2:
+            out.append(stream.collect_batch())
+    while stream.in_flight:
+        out.append(stream.collect_batch())
+    return out
+
+
+def _tf32_probs(stream, crops):
+    """The stream's f32 classifier with TF32 forced on, as cuDNN's default
+    (or a thread restoring the flags under another's forward) leaves it."""
+    @contextlib.contextmanager
+    def tf32():
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    full_f32, yolov8.full_f32 = yolov8.full_f32, tf32
+    try:
+        return stream._classify_probs(crops).cpu().numpy()
+    finally:
+        yolov8.full_f32 = full_f32
+
+
+F32_PROB_TOL = 1e-5
+
+
+@pytest.mark.gpu
+def test_batch_stream_f32_ranks_on_card_match_cpu(cuda_device):
+    """20 pipelined ticks of a 4-table fleet in f32, on the card and on the
+    CPU: the same classes, box corners within 1 px; and the CPU's host tail
+    (crop gather, classifier, rank gates) on the card's readbacks gives the
+    card's results exactly, with the f32 rank probabilities within 1e-5.
+    The same crops through the card's classifier with TF32 forced on miss
+    the CPU's by more: the check sees a forward that ran with TF32 on."""
+    ticks = _fleet_ticks(4, 20)
+    kw = dict(batch=4, compute_dtype=torch.float32)
+    card = load_batch_stream(DET_N, CLS, device=cuda_device, **kw)
+    cpu = load_batch_stream(DET_N, CLS, device="cpu", **kw)
+    calls, probs = [], []
+    finish, classify = card._finish_batch, card._classify_probs
+
+    def rec_finish(frames, metas, flat, full):
+        calls.append((frames, metas, flat.copy(), full.cpu()))
+        return finish(frames, metas, flat, full)
+
+    def rec_classify(crops):
+        out = classify(crops)
+        probs.append((crops, out.cpu().numpy()))
+        return out
+
+    flags = []
+    submit = card.submit_batch
+
+    def rec_submit(frames):
+        submit(frames)
+        flags.append(card._pending[-1]["memo"])
+
+    card._finish_batch, card._classify_probs, card.submit_batch = rec_finish, rec_classify, rec_submit
+    try:
+        got, ref = _pipelined(card, ticks), _pipelined(cpu, ticks)
+        assert card.mode_counts == cpu.mode_counts and card.memo_hits == cpu.memo_hits
+        for g_tick, r_tick in zip(got, ref):
+            for g_dets, r_dets in zip(g_tick, r_tick):
+                assert sorted(d["class_name"] for d in g_dets) == sorted(d["class_name"] for d in r_dets)
+                left = list(g_dets)
+                for r in r_dets:
+                    g = min((d for d in left if d["class_id"] == r["class_id"]),
+                            key=lambda d: np.abs(np.subtract(d["bbox"], r["bbox"])).max())
+                    left.remove(g)
+                    assert np.abs(np.subtract(g["bbox"], r["bbox"])).max() <= 1
+        cpu._rect_cache, cpu._prev_crops, cpu._last_cls_probs = {}, None, None
+        ref_probs = []
+        cpu_classify = cpu._classify_probs
+
+        def rec_cpu(crops):
+            out = cpu_classify(crops)
+            ref_probs.append(out.numpy())
+            return out
+
+        cpu._classify_probs = rec_cpu
+        replay = [cpu._finish_batch(*c) for c in calls]
+        assert sum(flags) == card.memo_hits and len(probs) == len(ref_probs) > 0
+        assert replay == [g for g, memo in zip(got, flags) if not memo]
+        assert max(float(np.abs(p - r).max()) for (_, p), r in zip(probs, ref_probs)) <= F32_PROB_TOL
+        assert float(np.abs(_tf32_probs(card, probs[0][0]) - ref_probs[0]).max()) > F32_PROB_TOL
+        assert sum(bool(d["ocr_text"]) for dets in replay[0] for d in dets) >= 4
+    finally:
+        card.close()
+        cpu.close()

@@ -47,6 +47,8 @@ def test_port_and_chip_smoke_import_with_blocked_packages():
     code = _BLOCKER + textwrap.dedent(f"""
         import importlib
         import manual_yolo_tpu_torch.cli.shot, manual_yolo_tpu_torch.runtime.shot
+        import manual_yolo_tpu_torch.cli.serve, manual_yolo_tpu_torch.runtime.serving
+        import manual_yolo_tpu_torch.runtime.fieldocr
         import chip_smoke
         for m in {modules!r}:
             importlib.import_module(m)
@@ -97,3 +99,30 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_serving_entry_points_need_a_card_unless_told_cpu(tmp_path):
+    """cli.serve, BatchStream and StreamingEngine default to cuda: without a
+    card, and with the blocked packages out of reach, each raises the device
+    error."""
+    code = _BLOCKER + textwrap.dedent(f"""
+        import torch
+        torch.cuda.is_available = lambda: False
+        from manual_yolo_tpu_torch.cli import serve
+        from manual_yolo_tpu_torch.runtime import serving
+        for call in (lambda: serve.main(["--tables", "1", "--ticks", "1", "--out", {str(tmp_path)!r}]),
+                     lambda: serving.load_batch_stream("weights/poker_detector_n.npz",
+                                                       "weights/rank_classifier_matched.npz"),
+                     lambda: serving.load_streaming_engine("weights/poker_detector_n.npz",
+                                                           "weights/rank_classifier_matched.npz")):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "device='cpu'" in str(e), e
+            else:
+                raise AssertionError("ran without a card")
+        print("ok")
+    """)
+    proc = _run(code, REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
