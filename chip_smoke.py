@@ -1,6 +1,6 @@
 """Run the PyTorch port's paths on one CUDA card, and check them: the
-single-screenshot path, the live loop, the hand session and multi-table
-serving.
+single-screenshot path, the live loop, the hand session, multi-table
+serving and training.
 
     python3 chip_smoke.py
 
@@ -77,9 +77,27 @@ Phases, in order; any failure raises and the exit code is not 0:
      the box is the same, those of moved boxes printed); cli.serve --ocr
      over 4 tables and 8 ticks, and a FieldOCRMemo pass on the card: exit 0,
      no caught error;
- 12. time the kernel's device time from a torch.profiler trace at
+ 12. training, through the CLIs: data/rank_matched.npz written as a PNG
+     folder dataset (1536 train, 67 valid crops); the warm start
+     (weights/rank_classifier_matched.npz) read by the trainer's evaluate
+     must give 64/67; cli.train_cls warm-started, 2 epochs at batch 64
+     (``train_cls``: step and batch-build medians, crops/s, losses, top-1;
+     the best checkpoint through load_params and RankClassifier); a YOLO
+     dataset of PNGs (the example and the seeded frame, shifted: 16 train,
+     4 valid; labels the f32 detections of poker_detector_n at conf 0.25;
+     the taxonomy's 64 names in data.yaml); with the launch counter at 0,
+     cli.train_det (YOLOv8n, imgsz 640, batch 16, bf16) for 2 epochs of 4
+     steps with an eval each, then resumed to a third (``train_det``: step,
+     batch wait and batch build medians, images/s, losses, mAP, one launch
+     per eval batch of 8); one profiled train step (``train_step_profile``);
+     three f32 steps of each model on the card and the CPU
+     (``train_f32_vs_cpu``, tolerances at TRAIN_LR below); cli.eval_det of
+     poker_detector_n on the valid split on the card (counted) and the CPU,
+     mAP within 1e-3 (``eval_det``); the kernel bit for bit on both eval
+     batches (eval8: the trainer's first; eval8_det_n: cli.eval_det's);
+ 13. time the kernel's device time from a torch.profiler trace at
      poker_labeled, full_chain, batch4, batch16, tiles12, the example's 6
-     tiles (tiles6_poker_labeled) and serve16 (each shape's launches
+     tiles (tiles6_poker_labeled), serve16, eval8 and eval8_det_n (each shape's launches
      inside a record_function range; a range without all of its kernel
      events fails), each beside its bound; the wrapper's time per call with
      CUDA events and the plain version at the main path's shape; the frame
@@ -88,7 +106,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      (device busy and idle share, the OCR pass's share, recognizer calls per
      kind, the host time of the beam and rescore); print them and a JSON
      line listing every kernel with its bound and its launches on each path;
- 13. print the device line last.
+ 14. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
 result is printed.
@@ -1123,6 +1141,362 @@ def serving(dev, gpu_ocr, tmp: str, launches_by_path: dict) -> dict:
     return {"serve16": (cand.nms_boxes.contiguous(), cand.valid.contiguous())}
 
 
+TRAIN_DET_TRAIN, TRAIN_DET_VALID = 16, 4  # frames of the YOLO dataset written here
+TRAIN_DET_STEPS, TRAIN_DET_EPOCHS, TRAIN_DET_BATCH = 4, 2, 16
+DETECTOR_N = os.path.join(REPO, "weights", "poker_detector_n.npz")
+MATCHED = os.path.join(REPO, "data", "rank_matched.npz")
+# three f32 train steps (lr 1e-3), card against CPU. The first step's loss
+# and gradients are the same computation on both: the loss within 1e-5
+# relative, every gradient within 1e-4 of the largest (the tolerance of the
+# port against JAX, tests/test_torch_train_det.py), but for the detector's:
+# SPPF's max pools meet ties on the example's flat UI regions, and the CPU
+# and the card route a tie's gradient to different inputs (both valid);
+# measured 1.3e-3 of the largest at SPPF's cv1 and the layers before it,
+# under 1e-6 card against card, 3.3e-5 for the classifier, which has no
+# pool (PERF.md §6). So the detector's gradients are held within 2e-3. After it the weights
+# drift apart: AdamW's first update is lr * sign(g) for every weight whose
+# gradient is far above eps, and a conv weight in front of a BN has a
+# gradient that is a difference of large terms, whose sign the two devices'
+# roundings can split; such a weight then steps 2 * lr apart. So the losses
+# of steps 2 and 3 are held within 1e-3 relative, the median weight within
+# 3e-5, all but 5% of the weights within 3e-4 (a tenth of the 3e-3 three
+# steps move a weight), every weight within 1e-2 (three opposite steps at
+# Adam's largest ratio), BN running statistics within 5e-3 relative
+TRAIN_LR = 1e-3
+TRAIN_LOSS0_RTOL, TRAIN_LOSS_RTOL = 1e-5, 1e-3
+TRAIN_GRAD_TOL = {"detect": 2e-3, "classify": 1e-4}
+TRAIN_WEIGHT_MEDIAN, TRAIN_WEIGHT_ATOL, TRAIN_WEIGHT_SHARE, TRAIN_WEIGHT_MAX = 3e-5, 3e-4, 0.05, 1e-2
+TRAIN_STAT_RTOL = 5e-3
+TRAIN_F32_DET_BATCH = 2  # the detector's batch in the f32 check: the CPU side runs it too
+EVAL_MAP_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def wrapped(module, name: str, make):
+    """Replace ``module.name`` by ``make(original)`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def rank_folder_dataset(root: str) -> dict:
+    """data/rank_matched.npz as a folder dataset of PNGs: train/ and valid/,
+    one folder per class in the npz's name order. -> {split: crops written}."""
+    z = np.load(MATCHED)
+    names = [str(n) for n in z["names"]]
+    written = {}
+    for split in ("train", "valid"):
+        for name in names:
+            os.makedirs(os.path.join(root, split, name), exist_ok=True)
+        for i, (img, c) in enumerate(zip(z[f"{split}_x"], z[f"{split}_y"])):
+            png.write_png(os.path.join(root, split, names[int(c)], f"{i:05d}.png"), img[..., ::-1])
+        written[split] = len(z[f"{split}_y"])
+    return written
+
+
+def train_cls_phase(dev, tmp: str) -> None:
+    """The warm start read by the trainer's own evaluate, then cli.train_cls
+    for two epochs on the card; the best checkpoint through the readers."""
+    from manual_yolo_tpu_torch.cli import train_cls as train_cls_cli
+    from manual_yolo_tpu_torch.core.serialization import load_params
+    from manual_yolo_tpu_torch.models.classifier import RankClassifier
+    from manual_yolo_tpu_torch.train import classifier as cls_train
+    from manual_yolo_tpu_torch.train.data import load_classify_folder
+
+    root = os.path.join(tmp, "rank_classifier")
+    written = rank_folder_dataset(root)
+    if written != {"train": 1536, "valid": 67}:
+        fail(f"the rank dataset holds {written} crops, not 1536 and 67")
+    x_val, y_val, _ = load_classify_folder(os.path.join(root, "valid"), 64)
+    params, meta = load_params(CLASSIFIER)
+    spec = yolov8.build_spec("classify", "n", 13)
+    warm = yolov8.load_jax_params(yolov8.build_model(spec, train=True), params).to(dev)
+    top1, _ = cls_train.evaluate(warm, x_val, y_val, dev)
+    right = round(top1 * len(y_val))
+    if right != 64 or abs(top1 - meta["top1_matched"]) > 1e-4:
+        fail(f"the warm start reads {right}/{len(y_val)} valid crops (top-1 {top1}), not 64/67 "
+             f"(the checkpoint's top1_matched {meta['top1_matched']})")
+    out = os.path.join(tmp, "cls_run", "best.npz")
+    results = []
+    with wrapped(cls_train, "train_classifier",
+                 lambda f: lambda cfg, log=print: results.append(f(cfg, log)) or results[-1]):
+        rc = train_cls_cli.main(["--data", root, "--out", out, "--epochs", "2", "--batch", "64",
+                                 "--imgsz", "64", "--init-from-npz", CLASSIFIER])
+    hist = results[0]["history"]
+    if rc != 0 or len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"cli.train_cls returned {rc} with history {hist}")
+    best, best_meta = load_params(out)
+    clf = RankClassifier.from_npz(out, device=dev)
+    npz_top1 = float(np.mean(clf.logits(torch.from_numpy(x_val).to(dev)).argmax(-1).cpu().numpy()
+                             == y_val))
+    if abs(npz_top1 - best_meta["top1"]) > 1.5 / len(y_val):
+        fail(f"the best checkpoint reads top-1 {npz_top1} through RankClassifier, "
+             f"its meta says {best_meta['top1']}")
+    step_ms = [h["step_ms"] for h in hist]
+    print(json.dumps({"train_cls": {
+        "warm_start_top1": top1, "warm_start_right": f"{right}/{len(y_val)}",
+        "epochs": 2, "steps_per_epoch": 1536 // 64, "batch": 64, "dtype": "float32",
+        "step_ms_median_by_epoch": step_ms, "batch_build_ms_median_by_epoch": [h["batch_ms"] for h in hist],
+        "crops_per_s": 64 / (statistics.median(step_ms) / 1e3),
+        "epoch_loss": [h["loss"] for h in hist], "top1": [h["top1"] for h in hist],
+        "best_top1": results[0]["best_top1"], "best_checkpoint_top1_via_RankClassifier": npz_top1,
+        "wall_s": results[0]["wall_s"]}}))
+
+
+def yolo_frames(frame_img: np.ndarray, frame_rand: np.ndarray) -> list:
+    """The example and the seeded frame, alternating, each shifted a few
+    pixels more than the last: 16 train frames, then 4 valid."""
+    frames = []
+    for i in range(TRAIN_DET_TRAIN + TRAIN_DET_VALID):
+        base = frame_img if i % 2 == 0 else frame_rand
+        frames.append(np.ascontiguousarray(np.roll(base, (3 * (i // 2), -5 * (i // 2)), (0, 1))))
+    return frames
+
+
+def write_yolo_dataset(root: str, frames: list, dev) -> int:
+    """A YOLO dataset of PNGs; each frame's labels are the port's own f32
+    detections of poker_detector_n at conf 0.25; data.yaml lists the 64
+    names of the taxonomy as a block list. -> labelled boxes."""
+    engine = DetectorEngine.from_npz(DETECTOR_N, imgsz=IMGSZ, conf=0.25, compute_dtype="float32",
+                                     device=dev)
+    boxes = 0
+    for i, frame in enumerate(frames):
+        split = "train" if i < TRAIN_DET_TRAIN else "valid"
+        os.makedirs(os.path.join(root, split, "images"), exist_ok=True)
+        os.makedirs(os.path.join(root, split, "labels"), exist_ok=True)
+        png.write_png(os.path.join(root, split, "images", f"f{i:02d}.png"), frame)
+        h, w = frame.shape[:2]
+        with open(os.path.join(root, split, "labels", f"f{i:02d}.txt"), "w") as f:
+            for d in engine.detect_to_list(frame):
+                x1, y1, x2, y2 = d["x1"], d["y1"], d["x2"], d["y2"]
+                f.write(f"{d['class_id']} {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} "
+                        f"{(x2 - x1) / w:.6f} {(y2 - y1) / h:.6f}\n")
+                boxes += 1
+    with open(os.path.join(root, "data.yaml"), "w") as f:
+        f.write("train: ../train/images\nval: ../valid/images\n\n")
+        f.write(f"nc: {len(taxonomy.CLASS_NAMES)}\nnames:\n")
+        f.writelines(f"  - {n}\n" for n in taxonomy.CLASS_NAMES)
+    return boxes
+
+
+def train_det_phase(dev, tmp: str, frames: list, launches_by_path: dict):
+    """cli.train_det at the CLI's widths (YOLOv8n, 64 classes, imgsz 640,
+    batch 16, bf16) for two epochs of four steps, evaluated every epoch, then
+    resumed to a third; counted. -> (dataset root, the first eval batch's
+    decoded boxes and scores)."""
+    from manual_yolo_tpu_torch.cli import train_det as train_det_cli
+    from manual_yolo_tpu_torch.core.serialization import load_params
+    from manual_yolo_tpu_torch.train import data as data_lib
+    from manual_yolo_tpu_torch.train import detector as det_train
+
+    root = os.path.join(tmp, "yolo")
+    n_boxes = write_yolo_dataset(root, frames, dev)
+    names = data_lib.load_yolo_names(root)
+    if names != dict(enumerate(taxonomy.CLASS_NAMES)) or n_boxes < 100:
+        fail(f"the YOLO dataset reads {len(names)} names and holds {n_boxes} boxes")
+    out = os.path.join(tmp, "det_run", "best.npz")
+    argv = ["--data", root, "--out", out, "--scale", "n", "--imgsz", str(IMGSZ),
+            "--batch", str(TRAIN_DET_BATCH), "--steps-per-epoch", str(TRAIN_DET_STEPS),
+            "--eval-every", "1"]
+    results, logs, eval_calls = [], [], []
+
+    def with_log(f):
+        def run(cfg, log=print):
+            results.append(f(cfg, lambda line: (logs.append(line), print(line))))
+            return results[-1]
+        return run
+
+    def record_nms(f):
+        def run(boxes, scores, **kw):
+            eval_calls.append((boxes.clone(), scores.clone(), kw))
+            return f(boxes, scores, **kw)
+        return run
+
+    launches = 0
+    for extra in ([], ["--resume"]):
+        epochs = TRAIN_DET_EPOCHS + (1 if extra else 0)
+        nms_kernel.nms_keep.launches = 0
+        with wrapped(det_train, "train_detector", with_log), wrapped(det_train, "nms_batch", record_nms):
+            rc = train_det_cli.main(argv + ["--epochs", str(epochs)] + extra)
+        torch.cuda.synchronize()
+        launches += nms_kernel.nms_keep.launches
+        if rc != 0:
+            fail(f"cli.train_det {' '.join(extra)} returned {rc}")
+    launches_by_path["train_det"] = launches
+    evals = TRAIN_DET_EPOCHS + 1
+    per_eval = -(-TRAIN_DET_VALID // 8)
+    if launches != evals * per_eval or len(eval_calls) != launches or \
+            any(b.shape[0] != 8 for b, _, _ in eval_calls):
+        fail(f"the trainer's evals made {launches} launches over {len(eval_calls)} nms_batch "
+             f"calls, expected {evals} x {per_eval} at B=8")
+    hist = results[0]["history"] + results[1]["history"]
+    joined = "\n".join(logs)
+    _, meta = load_params(os.path.join(tmp, "det_run", "last_n.npz"), dtype=None)
+    if "epoch 3/3" not in joined or "resumed from" not in joined or meta["epoch"] != 3 or \
+            meta["step"] != 3 * TRAIN_DET_STEPS:
+        fail(f"the resumed run did not continue to epoch 3 (meta {meta['epoch']}, {meta['step']})")
+    for h in hist:
+        if not all(np.isfinite(h[k]) for k in ("loss", "box", "cls", "dfl")):
+            fail(f"train_det epoch {h['epoch']} has a loss that is not finite: {h}")
+    step_ms = [h["step_ms"] for h in hist]
+    print(json.dumps({"train_det": {
+        "scale": "n", "nc": len(names), "imgsz": IMGSZ, "batch": TRAIN_DET_BATCH, "dtype": "bfloat16",
+        "train_frames": TRAIN_DET_TRAIN, "valid_frames": TRAIN_DET_VALID, "labelled_boxes": n_boxes,
+        "steps_per_epoch": TRAIN_DET_STEPS, "epochs": [h["epoch"] for h in hist],
+        "step_ms_median_by_epoch": step_ms,
+        "batch_wait_ms_median_by_epoch": [h["wait_ms"] for h in hist],
+        "batch_build_ms_median_by_epoch": [h["build_ms"] for h in hist],
+        "images_per_s": TRAIN_DET_BATCH / (statistics.median(step_ms) / 1e3),
+        "loss": [h["loss"] for h in hist], "box": [h["box"] for h in hist],
+        "cls": [h["cls"] for h in hist], "dfl": [h["dfl"] for h in hist],
+        "map50": [h["map50"] for h in hist], "map50_95": [h["map50_95"] for h in hist],
+        "nms_keep_launches": launches, "resumed_to_epoch": meta["epoch"], "step": meta["step"]}}))
+    return root, eval_calls[0]
+
+
+def train_step_profile(dev, root: str) -> dict:
+    """One torch.profiler trace of a bf16 detector train step at the CLI's
+    widths (batch 16 at 640, 64 classes), on a batch built beforehand."""
+    from manual_yolo_tpu_torch.train import data as data_lib
+    from manual_yolo_tpu_torch.train import detector as det_train
+
+    samples = data_lib.load_yolo_split(root, "train", max_side=IMGSZ * 3 // 2)
+    x, t, m = (torch.from_numpy(a).to(dev) for a in data_lib.make_detect_batch(
+        np.random.default_rng(0), samples, TRAIN_DET_BATCH, IMGSZ))
+    model, opt, ema = train_models("detect", dev, torch.bfloat16)
+    step = [0]
+
+    def one():
+        loss, _ = det_train.detect_step(model, ema, opt, x, t, m, step[0], TRAIN_LR)
+        step[0] += 1
+        return float(loss)
+
+    one()
+    return trace_once(one, "train_step")
+
+
+def train_models(variant: str, device, dtype=torch.float32):
+    """(train model, its AdamW, EMA twin or None) from the committed
+    checkpoint, BN unfolded, as the trainers build them."""
+    from manual_yolo_tpu_torch.core.serialization import load_params
+    from manual_yolo_tpu_torch.train import classifier as cls_train
+    from manual_yolo_tpu_torch.train.optim import adamw
+
+    params, meta = load_params(DETECTOR_N if variant == "detect" else CLASSIFIER)
+    spec = yolov8.build_spec(variant, "n", int(meta["spec"]["nc"]))
+
+    def build():
+        return yolov8.load_jax_params(yolov8.build_model(spec, dtype, train=True), params).to(device)
+
+    model = build().train()
+    if variant == "detect":
+        return model, adamw(model.parameters(), 5e-4), build().eval()
+    return model, adamw(cls_train.decay_groups(model, 5e-4), 5e-4), None
+
+
+def three_f32_steps(variant: str, device, batch) -> tuple:
+    """(losses, the first step's gradients by parameter name, trainable
+    weights, BN running statistics) of three f32 steps from the committed
+    checkpoint on ``batch``."""
+    from manual_yolo_tpu_torch.train import classifier as cls_train
+    from manual_yolo_tpu_torch.train import detector as det_train
+
+    model, opt, ema = train_models(variant, device)
+    inputs = [torch.from_numpy(a).to(device) for a in batch]
+    flat = lambda ts: torch.cat([t.detach().flatten().cpu() for t in ts]).numpy()
+    losses = []
+    for k in range(3):
+        if variant == "detect":
+            loss = det_train.detect_step(model, ema, opt, *inputs, k, TRAIN_LR)[0]
+        else:
+            loss = cls_train.classify_step(model, opt, *inputs, TRAIN_LR)
+        losses.append(float(loss))
+        if k == 0:  # the first step's gradients (the detector's after its clip)
+            grads = {n: p.grad.detach().flatten().cpu().numpy() for n, p in model.named_parameters()}
+    stats = [b for n, b in model.named_buffers() if not n.endswith("num_batches_tracked")]
+    return losses, grads, flat(model.parameters()), flat(stats)
+
+
+def train_f32_vs_cpu(dev, root: str) -> None:
+    """Three f32 train steps (TF32 off) of each model from its committed
+    checkpoint on one fixed batch, on the card and on the CPU."""
+    from manual_yolo_tpu_torch.train import data as data_lib
+
+    samples = data_lib.load_yolo_split(root, "train", max_side=IMGSZ * 3 // 2)
+    det_batch = data_lib.make_detect_batch(np.random.default_rng(1), samples, TRAIN_F32_DET_BATCH, IMGSZ)
+    z = np.load(MATCHED)
+    cls_batch = (z["train_x"][:64].astype(np.float32) / 255.0, z["train_y"][:64].astype(np.int32))
+    report = {}
+    for variant, batch in (("detect", det_batch), ("classify", cls_batch)):
+        got, got_g, got_w, got_s = three_f32_steps(variant, dev, batch)
+        again_g = three_f32_steps(variant, dev, batch)[1]
+        ref, ref_g, ref_w, ref_s = three_f32_steps(variant, torch.device("cpu"), batch)
+        loss_gap = [abs(g - r) / abs(r) for g, r in zip(got, ref)]
+        scale = max(float(np.abs(g).max()) for g in ref_g.values())
+        by_tensor = {n: float(np.abs(got_g[n] - ref_g[n]).max()) / scale for n in ref_g}
+        grad_gap = max(by_tensor.values())
+        card_card = max(float(np.abs(got_g[n] - again_g[n]).max()) for n in ref_g) / scale
+        dw = np.abs(got_w - ref_w)
+        stat_gap = float((np.abs(got_s - ref_s) / np.maximum(np.abs(ref_s), 1.0)).max())
+        share = float((dw > TRAIN_WEIGHT_ATOL).mean())
+        report[variant] = {"batch": len(batch[0]), "card_losses": got, "cpu_losses": ref,
+                           "loss_rel_gap": loss_gap, "grad0_gap_over_max": grad_gap,
+                           "grad0_card_vs_card_over_max": card_card,
+                           "grad0_gap_top": sorted(by_tensor.items(), key=lambda kv: -kv[1])[:4],
+                           "weights": int(dw.size), "weight_gap_median": float(np.median(dw)),
+                           "weight_gap_q999": float(np.quantile(dw, 0.999)),
+                           "weight_gap_max": float(dw.max()), "weight_share_over_atol": share,
+                           "bn_stat_rel_gap_max": stat_gap}
+        if loss_gap[0] > TRAIN_LOSS0_RTOL or grad_gap > TRAIN_GRAD_TOL[variant] or \
+                max(loss_gap) > TRAIN_LOSS_RTOL or np.median(dw) > TRAIN_WEIGHT_MEDIAN or \
+                share > TRAIN_WEIGHT_SHARE or dw.max() > TRAIN_WEIGHT_MAX or stat_gap > TRAIN_STAT_RTOL:
+            fail(f"{variant}: three f32 steps on the card against the CPU: {report[variant]}")
+    print(json.dumps({"train_f32_vs_cpu": dict(
+        report, loss0_rtol=TRAIN_LOSS0_RTOL, grad0_tol=TRAIN_GRAD_TOL, loss_rtol=TRAIN_LOSS_RTOL,
+        weight_median=TRAIN_WEIGHT_MEDIAN, weight_atol=TRAIN_WEIGHT_ATOL,
+        weight_share=TRAIN_WEIGHT_SHARE, weight_max=TRAIN_WEIGHT_MAX, bn_stat_rtol=TRAIN_STAT_RTOL)}))
+
+
+def eval_det_phase(dev, root: str, launches_by_path: dict):
+    """cli.eval_det of poker_detector_n on the dataset's valid split, f32, on
+    the card (counted) and with --device cpu: the same mAP within 1e-3.
+    -> the card's eval batch, decoded (boxes, scores)."""
+    from manual_yolo_tpu_torch.cli import eval_det as eval_det_cli
+    from manual_yolo_tpu_torch.train import detector as det_train
+
+    argv = ["--weights", DETECTOR_N, "--data", root, "--split", "valid", "--imgsz", str(IMGSZ)]
+    res, calls = {}, []
+
+    def record_nms(f):
+        def run(boxes, scores, **kw):
+            calls.append((boxes.clone(), scores.clone()))
+            return f(boxes, scores, **kw)
+        return run
+
+    for name, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        buf = io.StringIO()
+        nms_kernel.nms_keep.launches = 0
+        with contextlib.redirect_stdout(buf), wrapped(det_train, "nms_batch", record_nms):
+            rc = eval_det_cli.main(argv + extra)
+        if name == "card":
+            torch.cuda.synchronize()
+            launches_by_path["eval_det"] = nms_kernel.nms_keep.launches
+        text = buf.getvalue()
+        if rc != 0:
+            fail(f"cli.eval_det on the {name} returned {rc}: {text}")
+        res[name] = json.loads(text[text.index("{"):])
+    gaps = {k: abs(res["card"][k] - res["cpu"][k]) for k in ("map50", "map50_95")}
+    if max(gaps.values()) > EVAL_MAP_TOL or launches_by_path["eval_det"] != -(-TRAIN_DET_VALID // 8):
+        fail(f"cli.eval_det: card {res['card']} against CPU {res['cpu']}, "
+             f"{launches_by_path['eval_det']} launches")
+    print(json.dumps({"eval_det": {"card": res["card"], "cpu": res["cpu"], "gap": gaps,
+                                   "nms_keep_launches": launches_by_path["eval_det"]}}))
+    return calls[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1337,12 +1711,36 @@ def main() -> int:
     if bad or b16.shape[0] != SERVE_TABLES:
         fail(f"kernel and plain keep masks differ in {bad} entries on the serving tick")
 
-    # 12. timings: the kernel at seven shapes, the rest at the main path's
+    # 12. training: cli.train_cls, cli.train_det (counted), f32 steps against
+    # the CPU, cli.eval_det (counted), and the kernel on one eval batch
+    train_cls_phase(dev, tmp)
+    det_root, (eval_boxes, eval_scores, eval_kw) = train_det_phase(
+        dev, tmp, yolo_frames(frame_img, frame_rand), launches_by_path)
+    print(json.dumps({"train_step_profile": train_step_profile(dev, det_root)}))
+    train_f32_vs_cpu(dev, det_root)
+    eval_trained = eval_det_phase(dev, det_root, launches_by_path)
+    # the kernel on the two eval batches: the trainer's (its first eval) and
+    # cli.eval_det's of the trained YOLOv8n, both B=8 at conf 0.001
+    eval_cases = {}
+    for name, (eb, es) in (("eval8", (eval_boxes, eval_scores)), ("eval8_det_n", eval_trained)):
+        c = nms_ops.nms_candidates(eb, es, conf_thres=eval_kw["conf_thres"], pre_nms=eval_kw["pre_nms"])
+        b, v = c.nms_boxes.contiguous(), c.valid.contiguous()
+        got = nms_kernel.nms_keep(b, v, eval_kw["iou_thres"])
+        bad = int((got != nms_kernel.nms_keep_plain(b, v, eval_kw["iou_thres"])).sum())
+        print(f"nms_keep {name}: B={b.shape[0]} K={b.shape[1]} valid={int(v.sum())} "
+              f"kept={int(got.sum())} mismatches={bad}")
+        if bad or b.shape[:2] != (8, 512) or eval_kw["iou_thres"] != IOU:
+            fail(f"kernel and plain keep masks differ in {bad} entries on {name}")
+        eval_cases[name] = (b, v)
+
+    # 13. timings: the kernel at nine shapes, the rest at the main path's
     cases["tiles12"] = tiles12
     cases["tiles6_poker_labeled"] = (ecand.nms_boxes.contiguous(), ecand.valid.contiguous())
     cases["serve16"] = (b16, v16)
+    cases.update(eval_cases)
     timed = {name: cases[name] for name in ("poker_labeled", "full_chain", "batch4", "batch16",
-                                            "tiles12", "tiles6_poker_labeled", "serve16")}
+                                            "tiles12", "tiles6_poker_labeled", "serve16", "eval8",
+                                            "eval8_det_n")}
     ms_by_shape = kernel_ms({name: (lambda b=b, v=v: nms_kernel.nms_keep(b, v, IOU))
                              for name, (b, v) in timed.items()})
     bound_by_shape = {name: bound(b, v, nms_kernel.nms_keep_plain(b, v, IOU))
@@ -1412,7 +1810,7 @@ def main() -> int:
         "library_ms": None,
     }]}))
 
-    # 13. the device line
+    # 14. the device line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

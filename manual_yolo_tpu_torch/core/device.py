@@ -54,3 +54,8 @@ def full_f32():
             _f32_depth -= 1
             if _f32_depth == 0:
                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = _f32_saved
+
+
+def precision_for(dtype: torch.dtype):
+    """``full_f32()`` for an f32 computation, else a context that does nothing."""
+    return full_f32() if dtype == torch.float32 else contextlib.nullcontext()

@@ -1,18 +1,32 @@
-"""Reader for the repo's native ``.npz`` checkpoints.
+"""The repo's native ``.npz`` checkpoints: reader and writer.
 
-Counterpart of ``manual_yolo_tpu/core/serialization.py`` (reading side only).
-The file is a JSON structure template (``__struct__``, uint8 bytes) plus the
-numbered leaf arrays ``a0, a1, ...``; the template rebuilds the nested
-dict/list/tuple tree. No pickle is involved.
+Counterpart of ``manual_yolo_tpu/core/serialization.py``. The file is a JSON
+structure template (``__struct__``, uint8 bytes) plus the numbered leaf
+arrays ``a0, a1, ...``; the template rebuilds the nested dict/list/tuple
+tree. No pickle is involved. A file either package writes loads in the
+other.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+import tempfile
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+
+
+def _encode(tree, leaves: list):
+    if isinstance(tree, dict):
+        return {"t": "d", "k": {k: _encode(v, leaves) for k, v in tree.items()}}
+    if isinstance(tree, (list, tuple)):
+        return {
+            "t": "l" if isinstance(tree, list) else "t",
+            "v": [_encode(v, leaves) for v in tree],
+        }
+    leaves.append(np.asarray(tree))
+    return {"t": "a", "i": len(leaves) - 1}
 
 
 def _decode(node, leaves):
@@ -23,6 +37,36 @@ def _decode(node, leaves):
         seq = [_decode(v, leaves) for v in node["v"]]
         return seq if t == "l" else tuple(seq)
     return leaves[node["i"]]
+
+
+def save_params(
+    path: str, params: Any, meta: Optional[Dict[str, Any]] = None, dtype=np.float16
+):
+    """Save a tree (nested dict/list/tuple of numpy arrays) to ``path`` (.npz).
+
+    float32 leaves are stored as ``dtype`` (f16 by default; ``None`` keeps
+    them). The file is written next to ``path`` and renamed over it, so a
+    reader never sees half a checkpoint."""
+    leaves: list = []
+    struct = _encode(params, leaves)
+    payload = {"__struct__": np.frombuffer(
+        json.dumps({"struct": struct, "meta": meta or {}}).encode(), dtype=np.uint8
+    )}
+    for i, a in enumerate(leaves):
+        if dtype is not None and a.dtype == np.float32:
+            a = a.astype(dtype)
+        payload[f"a{i}"] = a
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def resolve_weight_path(path: str) -> str:

@@ -1,7 +1,8 @@
 // Host-side C++ of the PyTorch port: CTC decoding for the OCR engine, the
 // PNG row unfilter, and the serving path's frame ring, JSONL appender and
 // pixel loops (BGRA->BGR, crop, odd-integer decimation, cv2's uint8 linear
-// resize).
+// resize), and the detector trainer's augmentation loops (cv2's HSV round
+// trip with a per-channel table, and its bilinear warpAffine).
 //
 // Built by runtime/native.py with `g++ -O2 -shared -fPIC` at first use and
 // bound with ctypes (plain C interface, no Python headers). Each function has
@@ -15,7 +16,9 @@
 // the same pruning rules and the same byte layouts. Their plain twins live in
 // runtime/native.py (PlainFrameRing, PlainJsonLog, bgra_to_bgr_plain,
 // crop_u8_plain, decimate_u8_plain); resize_u8's is ops/image.py's
-// cv_resize_u8.
+// cv_resize_u8; hsv_jitter_u8's and warp_affine_u8's are train/data.py's
+// hsv_jitter_u8_plain and warp_affine_u8_plain, whose f32 operations they
+// repeat in the same order (the build turns FMA contraction off).
 
 #include <algorithm>
 #include <atomic>
@@ -458,6 +461,89 @@ void resize_u8(const uint8_t *src, int32_t w, int32_t c, const int32_t *x0,
     for (size_t i = 0; i < n; ++i) {
       const int32_t v = (((wy0 * r0[i]) >> 16) + ((wy1 * r1[i]) >> 16) + 2) >> 2;
       d[i] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Detector-trainer augmentation (train/data.py)
+
+// n BGR pixels -> HSV (cv2's uint8 algorithm: 12-bit division tables, H in
+// [0, 180)) -> each channel through its 256-entry table (luts: H, S, V) ->
+// BGR (cv2's vectorised float path: s and v scaled by 1/255, the result
+// times 255 truncated).
+void hsv_jitter_u8(const uint8_t *src, int64_t n, const uint8_t *luts, uint8_t *dst) {
+  int64_t sdiv[256] = {0}, hdiv[256] = {0};
+  for (int i = 1; i < 256; ++i) {
+    sdiv[i] = (int64_t)nearbyint((double)(255 << 12) / i);
+    hdiv[i] = (int64_t)nearbyint((double)(180 << 12) / (6.0 * i));
+  }
+  static const int sectors[6][3] = {{1, 3, 0}, {1, 0, 2}, {3, 0, 1},
+                                    {0, 2, 1}, {0, 1, 3}, {2, 1, 0}};
+  const float hscale = (float)(6.0 / 180.0), inv255 = (float)(1.0 / 255.0);
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t *p = src + i * 3;
+    const int64_t b = p[0], g = p[1], r = p[2];
+    const int64_t v = std::max(std::max(b, g), r);
+    const int64_t diff = v - std::min(std::min(b, g), r);
+    const int64_t s = (diff * sdiv[v] + 2048) >> 12;
+    int64_t h = v == r ? g - b : (v == g ? b - r + 2 * diff : r - g + 4 * diff);
+    h = (h * hdiv[diff] + 2048) >> 12;
+    if (h < 0) h += 180;
+    float hf = (float)luts[h] * hscale;
+    const float sf = (float)luts[256 + s] * inv255;
+    const float vf = (float)luts[512 + v] * inv255;
+    const int64_t sector = (int64_t)floorf(hf);
+    hf = hf - (float)sector;
+    // 1 - s*h with one rounding, as cv2's fused multiply-add: the double
+    // product is exact
+    const float t2 = (float)(1.0 - (double)sf * (double)hf);
+    const float t3 = (float)(1.0 - (double)sf * (double)(1.0f - hf));
+    const float tab[4] = {vf, vf * (1.0f - sf), vf * t2, vf * t3};
+    const int *sec = sectors[((sector % 6) + 6) % 6];
+    for (int c = 0; c < 3; ++c) {
+      const float o = truncf(tab[sec[c]] * 255.0f);
+      dst[i * 3 + c] = (uint8_t)(o < 0.0f ? 0.0f : (o > 255.0f ? 255.0f : o));
+    }
+  }
+}
+
+// f32 a * b + c with one rounding (cv2's fused multiply-adds): the double
+// product of two floats is exact. train/data.py's _fma computes the same.
+static inline float fma_f32(float a, float b, float c) {
+  return (float)((double)a * (double)b + (double)c);
+}
+
+// Bilinear warp of an (h, w, 3) uint8 image onto a size x size canvas. a is
+// the inverted 2x3 matrix in f32 (output pixel -> source point); neighbours
+// outside the image read `border`; the f32 blend is rounded half to even.
+void warp_affine_u8(const uint8_t *src, int32_t h, int32_t w, const float *a,
+                    int32_t size, int32_t border, uint8_t *dst) {
+  const float bv = (float)border;
+  for (int32_t y = 0; y < size; ++y) {
+    const float yf = (float)y;
+    const float bx = a[1] * yf + a[2], by = a[4] * yf + a[5];
+    for (int32_t x = 0; x < size; ++x) {
+      const float xf = (float)x;
+      const float sxf = fma_f32(a[0], xf, bx), syf = fma_f32(a[3], xf, by);
+      const float flx = floorf(sxf), fly = floorf(syf);
+      const int64_t sx = (int64_t)flx, sy = (int64_t)fly;
+      const float fx = sxf - flx, fy = syf - fly;
+      const bool x0in = sx >= 0 && sx < w, x1in = sx + 1 >= 0 && sx + 1 < w;
+      const bool y0in = sy >= 0 && sy < h, y1in = sy + 1 >= 0 && sy + 1 < h;
+      const uint8_t *r0 = src + (size_t)(y0in ? sy : 0) * w * 3;
+      const uint8_t *r1 = src + (size_t)(y1in ? sy + 1 : 0) * w * 3;
+      uint8_t *d = dst + ((size_t)y * size + x) * 3;
+      for (int c = 0; c < 3; ++c) {
+        const float p00 = y0in && x0in ? (float)r0[sx * 3 + c] : bv;
+        const float p01 = y0in && x1in ? (float)r0[(sx + 1) * 3 + c] : bv;
+        const float p10 = y1in && x0in ? (float)r1[sx * 3 + c] : bv;
+        const float p11 = y1in && x1in ? (float)r1[(sx + 1) * 3 + c] : bv;
+        const float top = fma_f32(fx, p01 - p00, p00);
+        const float bot = fma_f32(fx, p11 - p10, p10);
+        const float v = nearbyintf(fma_f32(fy, bot - top, top));
+        d[c] = (uint8_t)(v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v));
+      }
     }
   }
 }

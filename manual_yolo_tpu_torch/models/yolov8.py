@@ -5,18 +5,22 @@ Counterpart of ``manual_yolo_tpu/models/yolov8.py``. The layer graph
 
   * NCHW inside (cuDNN's layout); the public functions take and return the
     JAX package's layout, (N, H, W, C), so the two compare like with like;
-  * parameters come from the JAX package's folded numpy tree
-    (``load_params`` + ``fold_params``) through ``load_jax_params``;
+  * parameters come from the JAX package's numpy tree (``load_params``,
+    folded by ``fold_params`` for inference) through ``load_jax_params``;
   * hidden conv layers keep the bias + SiLU epilogue in the compute dtype,
     head layers (``act=False``) promote to f32, as the JAX ``conv_block``
     does (``manual_yolo_tpu/models/yolov8.py:425-461``);
   * a float32 forward turns TF32 off for its convs and matmuls: cuDNN's
-    TF32 default keeps ~3 decimal digits and flips borderline rank reads.
+    TF32 default keeps ~3 decimal digits and flips borderline rank reads;
+  * ``build_model(..., train=True)`` is the trainable model: f32 master
+    weights and explicit BN (``TrainConvBlock``), loaded from and exported to
+    the unfolded tree (``load_jax_params``, ``export_params``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -29,6 +33,7 @@ from manual_yolo_tpu_torch.core.device import full_f32
 from manual_yolo_tpu_torch.core.weights import conv_hwio_to_oihw, fold_batchnorm
 
 BN_EPS = 1e-3  # ultralytics Conv uses BatchNorm2d(eps=0.001)
+BN_MOMENTUM = 0.03
 REG_MAX = 16  # DFL bins in the Detect head
 
 # depth_multiple, width_multiple, max_channels per scale
@@ -158,10 +163,12 @@ class ConvBlock(nn.Module):
     The kernel is held in the compute dtype. A hidden layer (``act=True``)
     adds its bias and applies SiLU in the compute dtype; a head layer
     (``act=False``) adds an f32 bias, which promotes its output to f32.
+    ``bn`` is accepted so that both block kinds share one constructor
+    signature: with BN folded, every block has a bias.
     """
 
     def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1,
-                 act: bool = True, dtype: torch.dtype = torch.float32):
+                 act: bool = True, bn: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = act
         self.conv = nn.Conv2d(cin, cout, k, s, padding=k // 2, bias=False, dtype=dtype)
@@ -177,11 +184,45 @@ class ConvBlock(nn.Module):
         return y.float() + self.bias[:, None, None]
 
 
-class Bottleneck(nn.Module):
-    def __init__(self, c: int, shortcut: bool, dtype: torch.dtype):
+class TrainConvBlock(nn.Module):
+    """Conv + BN (or bias) (+ SiLU) with f32 master weights: the JAX
+    ``conv_block`` on an unfolded tree (``manual_yolo_tpu/models/yolov8.py:425-461``).
+
+    The forward casts the kernel and the input to the compute dtype, as
+    ``_conv2d`` does. BN runs in f32 on the conv output: in train mode on the
+    batch statistics, updating the running mean from the biased statistic
+    and the running var from the unbiased one with momentum ``BN_MOMENTUM``
+    (what ``BNCtx`` records); in eval mode on the running statistics. A conv
+    without BN (the Detect head's last) adds an f32 bias."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1,
+                 act: bool = True, bn: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cv1 = ConvBlock(c, c, 3, dtype=dtype)
-        self.cv2 = ConvBlock(c, c, 3, dtype=dtype)
+        self.act = act
+        self.compute_dtype = dtype
+        self.conv = nn.Conv2d(cin, cout, k, s, padding=k // 2, bias=False)
+        if bn:
+            self.bn = nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
+        else:
+            self.bn = None
+            self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.conv
+        y = F.conv2d(x.to(self.compute_dtype), c.weight.to(self.compute_dtype),
+                     None, c.stride, c.padding)
+        if self.bn is not None:
+            y = self.bn(y.float())
+        else:
+            y = y + (self.bias.to(y.dtype) if self.act else self.bias)[:, None, None]
+        return F.silu(y) if self.act else y
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c: int, shortcut: bool, conv):
+        super().__init__()
+        self.cv1 = conv(c, c, 3)
+        self.cv2 = conv(c, c, 3)
         self.shortcut = shortcut
 
     def forward(self, x):
@@ -192,12 +233,12 @@ class Bottleneck(nn.Module):
 class C2f(nn.Module):
     """Split in half, grow by one bottleneck output per repeat, concat, fuse."""
 
-    def __init__(self, cin: int, cout: int, n: int, shortcut: bool, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, n: int, shortcut: bool, conv):
         super().__init__()
         c = int(cout * 0.5)
-        self.cv1 = ConvBlock(cin, 2 * c, 1, dtype=dtype)
-        self.cv2 = ConvBlock((2 + n) * c, cout, 1, dtype=dtype)
-        self.m = nn.ModuleList(Bottleneck(c, shortcut, dtype) for _ in range(n))
+        self.cv1 = conv(cin, 2 * c, 1)
+        self.cv2 = conv((2 + n) * c, cout, 1)
+        self.m = nn.ModuleList(Bottleneck(c, shortcut, conv) for _ in range(n))
 
     def forward(self, x):
         y = self.cv1(x)
@@ -210,12 +251,12 @@ class C2f(nn.Module):
 class SPPF(nn.Module):
     """1x1 conv, three chained k x k stride-1 max pools, concat, 1x1 conv."""
 
-    def __init__(self, cin: int, cout: int, k: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, k: int, conv):
         super().__init__()
         c_ = cin // 2
         self.k = k
-        self.cv1 = ConvBlock(cin, c_, 1, dtype=dtype)
-        self.cv2 = ConvBlock(c_ * 4, cout, 1, dtype=dtype)
+        self.cv1 = conv(cin, c_, 1)
+        self.cv2 = conv(c_ * 4, cout, 1)
 
     def forward(self, x):
         y = self.cv1(x)
@@ -227,24 +268,27 @@ class SPPF(nn.Module):
 
 
 class ClassifyHead(nn.Module):
-    def __init__(self, cin: int, nc: int, dtype: torch.dtype):
+    """1x1 conv to 1280, global average pool, linear. The matmul runs in the
+    compute dtype and its f32 bias promotes the logits to f32, as in JAX."""
+
+    def __init__(self, cin: int, nc: int, conv, dtype: torch.dtype, train: bool):
         super().__init__()
-        self.conv = ConvBlock(cin, 1280, 1, dtype=dtype)
-        self.linear = nn.Linear(1280, nc, dtype=dtype)
-        self.linear.requires_grad_(False)
-        # the JAX head adds its bias in f32 whatever the compute dtype
-        self.linear.bias = nn.Parameter(torch.zeros(nc), requires_grad=False)
+        self.compute_dtype = dtype
+        self.conv = conv(cin, 1280, 1)
+        self.linear = nn.Linear(1280, nc, dtype=torch.float32 if train else dtype)
+        self.linear.requires_grad_(train)
+        self.linear.bias = nn.Parameter(torch.zeros(nc), requires_grad=train)
 
     def forward(self, x):
         y = self.conv(x).mean(dim=(2, 3))  # global average pool
-        w = self.linear.weight
-        return F.linear(y.to(w.dtype), w).float() + self.linear.bias
+        w = self.linear.weight.to(self.compute_dtype)
+        return F.linear(y.to(self.compute_dtype), w).float() + self.linear.bias
 
 
 class Detect(nn.Module):
     """Per level: a box branch (4*REG_MAX DFL logits) and a class branch."""
 
-    def __init__(self, spec: ModelSpec, dtype: torch.dtype):
+    def __init__(self, spec: ModelSpec, conv):
         super().__init__()
         ch = spec.out_channels
         c2 = max(16, ch[0] // 4, REG_MAX * 4)
@@ -252,9 +296,9 @@ class Detect(nn.Module):
 
         def branch(c, cmid, cout):
             return nn.ModuleList([
-                ConvBlock(c, cmid, 3, dtype=dtype),
-                ConvBlock(cmid, cmid, 3, dtype=dtype),
-                ConvBlock(cmid, cout, 1, act=False, dtype=dtype),
+                conv(c, cmid, 3),
+                conv(cmid, cmid, 3),
+                conv(cmid, cout, 1, act=False, bn=False),
             ])
 
         self.box = nn.ModuleList(branch(c, c2, 4 * REG_MAX) for c in ch)
@@ -271,24 +315,33 @@ class Detect(nn.Module):
 
 
 class _YOLOv8(nn.Module):
-    """The shared graph. ``layers.{i}`` mirrors ``params[i]`` of the JAX tree."""
+    """The shared graph. ``layers.{i}`` mirrors ``params[i]`` of the JAX tree.
 
-    def __init__(self, spec: ModelSpec, compute_dtype: torch.dtype):
+    ``train=False`` builds the inference model (BN folded, weights in the
+    compute dtype); ``train=True`` the trainable one (``TrainConvBlock``s,
+    f32 master weights, BN in train or eval mode as the module is)."""
+
+    def __init__(self, spec: ModelSpec, compute_dtype: torch.dtype, train: bool = False):
         super().__init__()
         self.spec = spec
         self.compute_dtype = compute_dtype
+        block = TrainConvBlock if train else ConvBlock
+
+        def conv(cin, cout, k=1, s=1, act=True, bn=True):
+            return block(cin, cout, k, s, act=act, bn=bn, dtype=compute_dtype)
+
         mods = []
         for layer in spec.layers:
             if layer.kind == "conv":
-                mods.append(ConvBlock(layer.cin, layer.cout, layer.k, layer.s, dtype=compute_dtype))
+                mods.append(conv(layer.cin, layer.cout, layer.k, layer.s))
             elif layer.kind == "c2f":
-                mods.append(C2f(layer.cin, layer.cout, layer.n, layer.shortcut, compute_dtype))
+                mods.append(C2f(layer.cin, layer.cout, layer.n, layer.shortcut, conv))
             elif layer.kind == "sppf":
-                mods.append(SPPF(layer.cin, layer.cout, layer.k, compute_dtype))
+                mods.append(SPPF(layer.cin, layer.cout, layer.k, conv))
             elif layer.kind == "classify":
-                mods.append(ClassifyHead(layer.cin, layer.cout, compute_dtype))
+                mods.append(ClassifyHead(layer.cin, layer.cout, conv, compute_dtype, train))
             elif layer.kind == "detect":
-                mods.append(Detect(spec, compute_dtype))
+                mods.append(Detect(spec, conv))
             else:  # upsample / concat — no params
                 mods.append(nn.Identity())
         self.layers = nn.ModuleList(mods)
@@ -335,20 +388,35 @@ class YOLOv8Classify(_YOLOv8):
             return self.layers[-1](feats[-1])
 
 
-def build_model(spec: ModelSpec, compute_dtype: torch.dtype = torch.float32) -> _YOLOv8:
+def build_model(spec: ModelSpec, compute_dtype: torch.dtype = torch.float32,
+                train: bool = False) -> _YOLOv8:
     cls = YOLOv8Classify if spec.variant == "classify" else YOLOv8Detect
-    return cls(spec, compute_dtype)
+    return cls(spec, compute_dtype, train)
+
+
+def _state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Parameters and BN running statistics by name (not the batch counter)."""
+    state = dict(module.named_parameters())
+    state.update((n, b) for n, b in module.named_buffers() if not n.endswith("num_batches_tracked"))
+    return state
 
 
 def load_jax_params(module: _YOLOv8, params: List[Any]) -> _YOLOv8:
-    """Copy the JAX package's folded parameter tree (numpy leaves) into
-    ``module``. Paths map one to one: ``params[i]["m"][0]["cv1"]`` is
-    ``layers.i.m.0.cv1``. Conv kernels go HWIO -> OIHW, the classify linear
-    (in, out) -> (out, in). Every parameter of the module must be set."""
+    """Copy a JAX-layout parameter tree (numpy leaves) into ``module``.
+
+    Paths map one to one: ``params[i]["m"][0]["cv1"]`` is ``layers.i.m.0.cv1``.
+    Conv kernels go HWIO -> OIHW, the classify linear (in, out) -> (out, in).
+    A folded tree (``{"w", "b"}``) loads into the inference model; an
+    unfolded one (``{"w", "bn": {gamma, beta, mean, var}}``) into the train
+    model, ``bn`` going to ``weight``/``bias``/``running_mean``/``running_var``.
+    Every parameter and BN statistic of the module must be set."""
+    state = _state(module)
     loaded = set()
 
-    def put(name: str, value: np.ndarray):
-        t = module.get_parameter(name)
+    def put(name: str, value):
+        if name not in state:
+            raise ValueError(f"{name}: not in the module")
+        t = state[name]
         v = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
         if tuple(v.shape) != tuple(t.shape):
             raise ValueError(f"{name}: checkpoint shape {tuple(v.shape)} != {tuple(t.shape)}")
@@ -358,15 +426,20 @@ def load_jax_params(module: _YOLOv8, params: List[Any]) -> _YOLOv8:
 
     def rec(p, path: str):
         if isinstance(p, dict) and "w" in p:
-            if "bn" in p:
-                raise ValueError(f"{path}: BN is not folded; run fold_params first")
             mod = module.get_submodule(path)
             if isinstance(mod, nn.Linear):
                 put(f"{path}.weight", np.asarray(p["w"]).T)
                 put(f"{path}.bias", p["b"])
-            else:
-                put(f"{path}.conv.weight", conv_hwio_to_oihw(np.asarray(p["w"])))
+                return
+            put(f"{path}.conv.weight", conv_hwio_to_oihw(np.asarray(p["w"])))
+            if "bn" not in p:
                 put(f"{path}.bias", p["b"])
+            elif getattr(mod, "bn", None) is None:
+                raise ValueError(f"{path}: BN is not folded; run fold_params first")
+            else:
+                for k, name in (("gamma", "weight"), ("beta", "bias"),
+                                ("mean", "running_mean"), ("var", "running_var")):
+                    put(f"{path}.bn.{name}", p["bn"][k])
         elif isinstance(p, dict):
             for k, v in p.items():
                 rec(v, f"{path}.{k}")
@@ -376,10 +449,121 @@ def load_jax_params(module: _YOLOv8, params: List[Any]) -> _YOLOv8:
 
     for i, p in enumerate(params):
         rec(p, f"layers.{i}")
-    missing = {n for n, _ in module.named_parameters()} - loaded
+    missing = set(state) - loaded
     if missing:
         raise ValueError(f"parameters not in the checkpoint: {sorted(missing)[:5]}")
     return module
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _export_conv(m) -> Dict[str, Any]:
+    w = np.ascontiguousarray(_np(m.conv.weight).transpose(2, 3, 1, 0))  # OIHW -> HWIO
+    bn = getattr(m, "bn", None)
+    if bn is None:
+        return {"w": w, "b": _np(m.bias)}
+    return {"w": w, "bn": {"gamma": _np(bn.weight), "beta": _np(bn.bias),
+                           "mean": _np(bn.running_mean), "var": _np(bn.running_var)}}
+
+
+def _export_pair(m) -> Dict[str, Any]:
+    return {"cv1": _export_conv(m.cv1), "cv2": _export_conv(m.cv2)}
+
+
+def export_params(module: _YOLOv8) -> List[Any]:
+    """The inverse of ``load_jax_params``: the module's parameters (and BN
+    statistics) as the JAX package's tree of f32 numpy arrays, HWIO kernels,
+    ``bn`` dicts in a train model. ``save_params`` writes it as a checkpoint
+    the JAX package reads; ``fold_params`` turns it into the inference tree."""
+    out: List[Any] = []
+    for layer, mod in zip(module.spec.layers, module.layers):
+        if layer.kind == "conv":
+            out.append(_export_conv(mod))
+        elif layer.kind == "c2f":
+            out.append(dict(_export_pair(mod), m=[_export_pair(b) for b in mod.m]))
+        elif layer.kind == "sppf":
+            out.append(_export_pair(mod))
+        elif layer.kind == "classify":
+            out.append({"conv": _export_conv(mod.conv),
+                        "linear": {"w": np.ascontiguousarray(_np(mod.linear.weight).T),
+                                   "b": _np(mod.linear.bias)}})
+        elif layer.kind == "detect":
+            out.append({k: [{str(j): _export_conv(c) for j, c in enumerate(branch)}
+                            for branch in getattr(mod, k)] for k in ("box", "cls")})
+        else:
+            out.append({})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Random init (training from scratch)
+# ---------------------------------------------------------------------------
+
+
+def _uniform(g: torch.Generator, shape, bound: float) -> np.ndarray:
+    return ((torch.rand(shape, generator=g) * 2 - 1) * bound).numpy()
+
+
+def _init_conv(g, cin, cout, k, with_bn=True) -> Dict[str, Any]:
+    # kaiming-uniform fan_in, matching torch's default conv init behaviour
+    p = {"w": _uniform(g, (k, k, cin, cout), math.sqrt(6.0 / (cin * k * k)))}
+    if with_bn:
+        p["bn"] = {"gamma": np.ones(cout, np.float32), "beta": np.zeros(cout, np.float32),
+                   "mean": np.zeros(cout, np.float32), "var": np.ones(cout, np.float32)}
+    else:
+        p["b"] = np.zeros(cout, np.float32)
+    return p
+
+
+def _init_c2f(g, cin, cout, n) -> Dict[str, Any]:
+    c = int(cout * 0.5)
+    return {"cv1": _init_conv(g, cin, 2 * c, 1), "cv2": _init_conv(g, (2 + n) * c, cout, 1),
+            "m": [{"cv1": _init_conv(g, c, c, 3), "cv2": _init_conv(g, c, c, 3)}
+                  for _ in range(n)]}
+
+
+def _init_detect(g, spec: ModelSpec) -> Dict[str, Any]:
+    ch, nc = spec.out_channels, spec.nc
+    c2 = max(16, ch[0] // 4, REG_MAX * 4)
+    c3 = max(ch[0], min(nc, 100))
+    box, cls = [], []
+    for c, s in zip(ch, spec.strides):
+        box.append({"0": _init_conv(g, c, c2, 3), "1": _init_conv(g, c2, c2, 3),
+                    "2": _init_conv(g, c2, 4 * REG_MAX, 1, with_bn=False)})
+        cls.append({"0": _init_conv(g, c, c3, 3), "1": _init_conv(g, c3, c3, 3),
+                    "2": _init_conv(g, c3, nc, 1, with_bn=False)})
+        # bias init per ultralytics Detect.bias_init: box bias 1.0,
+        # cls bias log(5/nc/(640/stride)^2)
+        box[-1]["2"]["b"] = np.full(4 * REG_MAX, 1.0, np.float32)
+        cls[-1]["2"]["b"] = np.full(nc, math.log(5 / nc / (640 / s) ** 2), np.float32)
+    return {"box": box, "cls": cls}
+
+
+def init_params(g: torch.Generator, spec: ModelSpec) -> List[Any]:
+    """Random-init a JAX-layout tree for ``spec``, drawn from ``g``: the
+    distributions of ``manual_yolo_tpu/models/yolov8.py:130-237`` (JAX's
+    random streams cannot be reproduced, so the values differ)."""
+    params: List[Any] = []
+    for layer in spec.layers:
+        if layer.kind == "conv":
+            params.append(_init_conv(g, layer.cin, layer.cout, layer.k))
+        elif layer.kind == "c2f":
+            params.append(_init_c2f(g, layer.cin, layer.cout, layer.n))
+        elif layer.kind == "sppf":
+            c_ = layer.cin // 2
+            params.append({"cv1": _init_conv(g, layer.cin, c_, 1),
+                           "cv2": _init_conv(g, c_ * 4, layer.cout, 1)})
+        elif layer.kind == "classify":
+            params.append({"conv": _init_conv(g, layer.cin, 1280, 1),
+                           "linear": {"w": _uniform(g, (1280, layer.cout), math.sqrt(1.0 / 1280)),
+                                      "b": np.zeros(layer.cout, np.float32)}})
+        elif layer.kind == "detect":
+            params.append(_init_detect(g, spec))
+        else:  # upsample / concat — no params
+            params.append({})
+    return params
 
 
 # ---------------------------------------------------------------------------

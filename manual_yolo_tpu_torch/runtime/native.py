@@ -5,7 +5,9 @@ encoders (``nibble_encode``, ``tribit_encode``, ``seg_encode``): the CTC
 beam and rescore, the serving path's frame ring, JSONL appender and pixel
 loops (``bgra_to_bgr``, ``crop_u8``, ``decimate_u8_into``, ``resize_u8``)
 and the libc ``memcmp`` compare, plus the PNG row unfilter of
-``runtime/png.py``. The library is compiled by ``g++ -O2 -shared -fPIC`` at first use into ``manual_yolo_tpu_torch/_build/``
+``runtime/png.py`` and the detector trainer's ``hsv_jitter_u8`` and
+``warp_affine_u8`` (their twins are in ``train/data.py``). The library is
+compiled by ``g++ -O2 -ffp-contract=off -shared -fPIC`` at first use into ``manual_yolo_tpu_torch/_build/``
 (git-ignored), named by a hash of the source and the flags, as
 ``ops/nms_kernel.py`` does with ``nvcc``. A failed build raises: nothing
 falls back to the Python loops, which stay as the tests' plain twins
@@ -33,7 +35,8 @@ import numpy as np
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "host.cpp"
 BUILD_DIR = PKG_DIR / "_build"
-GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+# no FMA contraction: the f32 pixel loops repeat their numpy twins' roundings
+GXX_FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 
 def build() -> Path:
@@ -100,6 +103,10 @@ def library() -> ctypes.CDLL:
     lib.decimate_u8.restype = None
     lib.resize_u8.argtypes = [p, i32, i32] + [p] * 8 + [p, i32, i32]
     lib.resize_u8.restype = None
+    lib.hsv_jitter_u8.argtypes = [p, i64, p, p]
+    lib.hsv_jitter_u8.restype = None
+    lib.warp_affine_u8.argtypes = [p, i32, i32, p, i32, i32, p]
+    lib.warp_affine_u8.restype = None
     return lib
 
 
@@ -368,6 +375,33 @@ def resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     # the tables stay referenced here until the call returns, whatever the cache evicts
     tables, addresses = _resize_tables(h, w, out_h, out_w)
     library().resize_u8(x.ctypes.data, w, c, *addresses, out.ctypes.data, out_h, out_w)
+    return out
+
+
+def hsv_jitter_u8(img: np.ndarray, luts: np.ndarray) -> np.ndarray:
+    """cv2's uint8 BGR -> HSV, each channel through its row of ``luts``
+    ((3, 256) uint8), HSV -> BGR; ``train/data.py::hsv_jitter_u8_plain`` is
+    its twin."""
+    x = _u8_image(img, 3, "hsv_jitter_u8")
+    t = np.ascontiguousarray(luts, np.uint8)
+    if t.shape != (3, 256):
+        raise ValueError(f"hsv_jitter_u8 needs (3, 256) tables, got {t.shape}")
+    out = np.empty_like(x)
+    library().hsv_jitter_u8(x.ctypes.data, x.shape[0] * x.shape[1], t.ctypes.data, out.ctypes.data)
+    return out
+
+
+def warp_affine_u8(img: np.ndarray, inverse: np.ndarray, size: int, border: int) -> np.ndarray:
+    """Bilinear warp of an (H, W, 3) uint8 image to (size, size, 3) through the
+    inverted 2x3 matrix ``inverse`` (f32); ``train/data.py::warp_affine_u8_plain``
+    is its twin."""
+    x = _u8_image(img, 3, "warp_affine_u8")
+    a = np.ascontiguousarray(inverse, np.float32)
+    if a.shape != (2, 3) or size < 1:
+        raise ValueError(f"warp_affine_u8 needs a 2x3 matrix and a positive size, got {a.shape}, {size}")
+    out = np.empty((size, size, 3), np.uint8)
+    library().warp_affine_u8(x.ctypes.data, x.shape[0], x.shape[1], a.ctypes.data, size,
+                             int(border), out.ctypes.data)
     return out
 
 

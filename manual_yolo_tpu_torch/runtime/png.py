@@ -1,4 +1,5 @@
-"""A PNG reader (standard library ``zlib``, numpy and the port's host library).
+"""A PNG reader and writer (standard library ``zlib``, numpy and the port's
+host library).
 
 It stands in for ``cv2.imread`` on the single-screenshot path, so the port
 does not depend on OpenCV, and gives what ``cv2.imread(path)`` gives: three
@@ -7,6 +8,9 @@ and palette images, with or without alpha, at 1 to 16 bits per sample,
 interlaced (Adam7) or not. Alpha is dropped without compositing, 16-bit
 samples keep their high byte, and grayscale below 8 bits is scaled to 0..255,
 as libpng does for OpenCV. Any other file raises ``ValueError``.
+
+``write_png`` writes uint8 BGR or gray images (filter 0, ``zlib``): the
+counterpart of ``cv2.imwrite`` of a PNG.
 
 The row filters are undone in C++ (``csrc/host.cpp::png_unfilter``, bound in
 ``runtime/native.py``); ``_unfilter`` is its plain twin, kept for the tests.
@@ -164,3 +168,25 @@ def imread_bgr(path: str) -> np.ndarray:
     if not os.path.exists(path):
         raise FileNotFoundError(f"cannot read image: {path}")
     return np.ascontiguousarray(read_png(path)[..., ::-1])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Write an (H, W, 3) uint8 BGR or (H, W) uint8 gray image as an 8-bit
+    PNG (RGB or grayscale, no interlace, every row with filter 0), as
+    ``cv2.imwrite(path, img)`` stores it."""
+    x = np.asarray(img)
+    if x.dtype != np.uint8 or x.ndim not in (2, 3) or (x.ndim == 3 and x.shape[2] != 3) or 0 in x.shape:
+        raise ValueError(f"write_png takes (H, W, 3) BGR or (H, W) gray uint8, got {x.dtype} {x.shape}")
+    h, w = x.shape[:2]
+    rows = x if x.ndim == 2 else x[..., ::-1]
+    raw = np.zeros((h, 1 + w * (1 if x.ndim == 2 else 3)), np.uint8)
+    raw[:, 1:] = rows.reshape(h, -1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if x.ndim == 2 else 2, 0, 0, 0)
+    data = (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)

@@ -2,9 +2,11 @@
 pipeline on the card against the f32 pipeline on the CPU, the CRNN and the OCR
 engine on the card against the CPU, the host C++ library against its plain
 twins (built by the card's host), the batched NMS and the detector
-engine's tiled batch, each in one kernel launch, and the serving
+engine's tiled batch, each in one kernel launch, the serving
 BatchStream: one launch per tick, and its f32 rank reads equal to the CPU's
-over 20 pipelined ticks.
+over 20 pipelined ticks, and training: three f32 train steps of each model
+on the card against the CPU, the kernel on one eval batch of candidates
+(B=8, conf 0.001), two bf16 detector steps, and ``cli.train_cls``.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -37,6 +39,11 @@ from manual_yolo_tpu_torch.ops.image import cv_resize_u8  # noqa: E402
 from manual_yolo_tpu_torch.runtime.serving import load_batch_stream  # noqa: E402
 from torch_loop_cases import nms_batch_inputs  # noqa: E402
 from torch_nms_cases import NMS_CASES, nms_case  # noqa: E402
+from torch_train_cases import MATCHED, detect_batch, rank_folder_dataset  # noqa: E402
+from manual_yolo_tpu_torch.train import classifier as pt_cls  # noqa: E402
+from manual_yolo_tpu_torch.train import detector as pt_det  # noqa: E402
+from manual_yolo_tpu_torch.train.optim import adamw  # noqa: E402
+from manual_yolo_tpu_torch.train.data import DetectSample, make_eval_batch  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = os.path.join(REPO, "weights", "poker_detector.npz")
@@ -327,3 +334,105 @@ def test_batch_stream_f32_ranks_on_card_match_cpu(cuda_device):
     finally:
         card.close()
         cpu.close()
+
+
+def _train_models(variant, device, dtype=torch.float32):
+    """A train model (and for the detector its EMA twin) from the committed
+    checkpoint, BN unfolded, with an AdamW as its trainer builds it."""
+    params, meta = load_params(DET_N if variant == "detect" else CLS)
+    spec = yolov8.build_spec(variant, "n", int(meta["spec"]["nc"]))
+    model = yolov8.load_jax_params(yolov8.build_model(spec, dtype, train=True), params).to(device).train()
+    if variant == "detect":
+        return model, adamw(model.parameters(), 5e-4)
+    return model, adamw(pt_cls.decay_groups(model, 5e-4), 5e-4)
+
+
+def _three_steps(variant, device, dtype=torch.float32):
+    """(losses, the first step's gradients, trainable weights, BN statistics)
+    of three steps at lr 1e-3 (two in bf16) from the committed checkpoint on
+    a seeded batch."""
+    model, opt = _train_models(variant, device, dtype)
+    losses = []
+    if variant == "detect":
+        ema = _train_models(variant, device, dtype)[0].eval()
+        x, t, m = (torch.from_numpy(a).to(device) for a in detect_batch(2, 128, 6, model.spec.nc))
+        for k in range(3 if dtype == torch.float32 else 2):
+            losses.append(float(pt_det.detect_step(model, ema, opt, x, t, m, k, 1e-3)[0]))
+            grads = grads if k else torch.cat([p.grad.float().flatten().cpu() for p in model.parameters()])
+    else:
+        z = np.load(MATCHED)
+        x = torch.from_numpy(z["train_x"][:64].astype(np.float32) / 255.0).to(device)
+        y = torch.from_numpy(z["train_y"][:64].astype(np.int32)).to(device)
+        for k in range(3):
+            losses.append(float(pt_cls.classify_step(model, opt, x, y, 1e-3)))
+            grads = grads if k else torch.cat([p.grad.float().flatten().cpu() for p in model.parameters()])
+    flat = lambda ts: torch.cat([t.detach().float().flatten().cpu() for t in ts]).numpy()
+    stats = [b for n, b in model.named_buffers() if not n.endswith("num_batches_tracked")]
+    return losses, grads, flat(model.parameters()), flat(stats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["detect", "classify"])
+def test_three_f32_train_steps_on_card_match_cpu(cuda_device, variant):
+    """Three f32 train steps (TF32 off) at lr 1e-3 from the committed
+    checkpoint on the card and on the CPU, held as ``chip_smoke.py``'s
+    ``train_f32_vs_cpu`` holds them (its note gives the reasons): the first
+    loss within 1e-5 relative and its gradients within 1e-4 of the largest
+    (2e-3 for the detector, whose SPPF max pools route tied gradients
+    differently on the two devices);
+    the later losses within 1e-3; the median weight within 3e-5, all but 5%
+    of the weights within 3e-4, every one within 1e-2; BN statistics within
+    5e-3 relative."""
+    got, got_g, got_w, got_s = _three_steps(variant, cuda_device)
+    ref, ref_g, ref_w, ref_s = _three_steps(variant, torch.device("cpu"))
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
+    grad_tol = 2e-3 if variant == "detect" else 1e-4
+    assert float((got_g - ref_g).abs().max()) <= grad_tol * float(ref_g.abs().max())
+    np.testing.assert_allclose(got, ref, rtol=1e-3)
+    dw = np.abs(got_w - ref_w)
+    assert np.median(dw) <= 3e-5 and (dw > 3e-4).mean() <= 0.05 and dw.max() <= 1e-2
+    np.testing.assert_allclose(got_s, ref_s, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.gpu
+def test_two_bf16_detector_steps_are_finite(cuda_device):
+    losses, _, weights, stats = _three_steps("detect", cuda_device, torch.bfloat16)
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    assert np.all(np.isfinite(weights)) and np.all(np.isfinite(stats))
+
+
+@pytest.mark.gpu
+def test_nms_keep_on_an_eval_batch(cuda_device):
+    """The candidates of one evaluate_detector batch (8 frames at imgsz 640,
+    conf 0.001: nearly every one of the 512 slots valid) through the kernel
+    and the plain twin: bit for bit, one launch."""
+    params, meta = load_params(DET_N)
+    spec = yolov8.build_spec("detect", "n", int(meta["spec"]["nc"]))
+    model = yolov8.load_jax_params(yolov8.build_model(spec), yolov8.fold_params(params, spec))
+    model = model.to(cuda_device).eval()
+    frame = png.imread_bgr(IMAGE)
+    frames = np.stack([np.roll(frame, (3 * i, -5 * i), (0, 1)) for i in range(8)])
+    imgs = make_eval_batch([DetectSample(f, np.zeros((0, 4), np.float32), np.zeros(0, np.int32))
+                            for f in frames], 640)[0]
+    with torch.no_grad():
+        boxes, scores = yolov8.decode_boxes(model(torch.from_numpy(imgs).to(cuda_device)),
+                                            (640, 640), spec.strides)
+    cand = pt_nms.nms_candidates(boxes, scores, conf_thres=0.001)
+    b, v = cand.nms_boxes.contiguous(), cand.valid.contiguous()
+    assert b.shape == (8, 512, 4) and int(v.sum()) > 8 * 400
+    before = nms_keep.launches
+    got = nms_keep(b, v, 0.7)
+    assert nms_keep.launches == before + 1
+    assert torch.equal(got, nms_keep_plain(b, v, 0.7))
+
+
+@pytest.mark.gpu
+def test_cli_train_cls_one_epoch_on_card(cuda_device, tmp_path, capsys):
+    from manual_yolo_tpu_torch.cli import train_cls
+
+    root, _ = rank_folder_dataset(str(tmp_path / "ds"), per_class=(5, 2))
+    out = str(tmp_path / "run" / "best.npz")
+    assert train_cls.main(["--data", root, "--out", out, "--epochs", "1", "--batch", "16",
+                           "--init-from-npz", CLS]) == 0
+    res = capsys.readouterr().out
+    assert '"best_top1"' in res and os.path.exists(out)

@@ -126,3 +126,32 @@ def test_serving_entry_points_need_a_card_unless_told_cpu(tmp_path):
     proc = _run(code, REPO)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_training_clis_need_a_card_unless_told_cpu(tmp_path):
+    """cli.train_cls, cli.train_det and cli.eval_det default to cuda: without
+    a card, and with the blocked packages out of reach, each raises the
+    device error before it reads any data."""
+    code = _BLOCKER + textwrap.dedent(f"""
+        import torch
+        torch.cuda.is_available = lambda: False
+        from manual_yolo_tpu_torch.cli import eval_det, train_cls, train_det
+        import manual_yolo_tpu_torch.train.classifier, manual_yolo_tpu_torch.train.detector
+        missing = {str(tmp_path / "none")!r}
+        for call in (lambda: train_cls.main(["--data", missing]),
+                     lambda: train_det.main(["--data", missing]),
+                     lambda: eval_det.main(["--data", missing, "--weights",
+                                            "weights/poker_detector_n.npz"])):
+            try:
+                call()
+            except RuntimeError as e:
+                assert "device='cpu'" in str(e), e
+            else:
+                raise AssertionError("ran without a card")
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    proc = _run(code, REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
