@@ -1,6 +1,6 @@
 """Run the PyTorch port's paths on one CUDA card, and check them: the
 single-screenshot path, the live loop, the hand session, multi-table
-serving and training.
+serving, serving's delta codec and training.
 
     python3 chip_smoke.py
 
@@ -77,7 +77,24 @@ Phases, in order; any failure raises and the exit code is not 0:
      the box is the same, those of moved boxes printed); cli.serve --ocr
      over 4 tables and 8 ticks, and a FieldOCRMemo pass on the card: exit 0,
      no caught error;
- 12. training, through the CLIs: data/rank_matched.npz written as a PNG
+ 12. serving's delta codec: 16 tables (YOLOv8s bf16 at 640, conf 0.25, OCR
+     off), every table changing every tick as bench.py's jittered stream
+     does (a global jitter within [-6, 6] per channel after a persisting
+     local repaint): the first tick, 24 jittered ticks (segs with the fused
+     classify), per-pixel noise within +-3 (tribit), table 0 at another
+     letterbox geometry (raw) and noise within +-7 there (nibble); with the
+     launch counter at 0, cli/serve.py's loop over them (one launch per
+     tick, the planned mode on each), then the same with delta=False:
+     upload MB per tick against raw_active's, submit_encode, submit_crops
+     and dispatch p50, the loop step, fused hits and misses, and a trace of
+     4 jittered ticks each (``codec_ms``, ``codec_profile``); each tick alone
+     in bf16 and in f32 with the resident canvas and predicted crop plane
+     held byte for byte against the host's after every tick, the results
+     equal to delta=False's (every detection; every rank text but where the
+     fused classify took a near-miss prediction's row, listed); one trace of
+     the decode of one segs, tribit and nibble payload: launches and device
+     ms per tick (``codec_decode``, ``codec_checks``);
+ 13. training, through the CLIs: data/rank_matched.npz written as a PNG
      folder dataset (1536 train, 67 valid crops); the warm start
      (weights/rank_classifier_matched.npz) read by the trainer's evaluate
      must give 64/67; cli.train_cls warm-started, 2 epochs at batch 64
@@ -95,7 +112,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      poker_detector_n on the valid split on the card (counted) and the CPU,
      mAP within 1e-3 (``eval_det``); the kernel bit for bit on both eval
      batches (eval8: the trainer's first; eval8_det_n: cli.eval_det's);
- 13. time the kernel's device time from a torch.profiler trace at
+ 14. time the kernel's device time from a torch.profiler trace at
      poker_labeled, full_chain, batch4, batch16, tiles12, the example's 6
      tiles (tiles6_poker_labeled), serve16, eval8 and eval8_det_n (each shape's launches
      inside a record_function range; a range without all of its kernel
@@ -106,7 +123,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      (device busy and idle share, the OCR pass's share, recognizer calls per
      kind, the host time of the beam and rescore); print them and a JSON
      line listing every kernel with its bound and its launches on each path;
- 14. print the device line last.
+ 15. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
 result is printed.
@@ -808,28 +825,36 @@ def serve_loop(stream, ticks) -> tuple:
 
 def record_tail(stream) -> tuple:
     """Wrap the stream's host tail: record (frames, metas, packed readback,
-    full plane on the CPU) of each fresh (not memo) tick, and the crops and
-    f32 probabilities of each classifier call."""
+    full plane on the CPU, and on a fused tick the predicted crop rects, else
+    None) of each fresh (not memo) tick, and the crops and f32 probabilities
+    of each classifier call."""
     calls, probs = [], []
-    finish, classify = stream._finish_batch, stream._classify_probs
+    finish, fused, classify = (stream._finish_batch, stream._finish_batch_fused,
+                               stream._classify_probs)
 
     def rec_finish(frames, metas, flat, full):
-        calls.append((frames, metas, flat.copy(), full.cpu()))
+        calls.append((frames, metas, flat.copy(), full.cpu(), None))
         return finish(frames, metas, flat, full)
+
+    def rec_fused(frames, metas, flat, pred, full):
+        calls.append((frames, metas, flat.copy(), full.cpu(), pred))
+        return fused(frames, metas, flat, pred, full)
 
     def rec_classify(crops):
         out = classify(crops)
         probs.append((crops, out.cpu().numpy()))
         return out
 
-    stream._finish_batch, stream._classify_probs = rec_finish, rec_classify
+    stream._finish_batch, stream._finish_batch_fused, stream._classify_probs = (
+        rec_finish, rec_fused, rec_classify)
     return calls, probs
 
 
 def replay_tail(stream, calls) -> tuple:
-    """``stream``'s host tail (crop gather, classifier, rank gates) over
-    another stream's recorded readbacks, from a fresh crop-rect cache:
-    (results, f32 probabilities of each classifier call)."""
+    """``stream``'s host tail (crop gather, classifier, rank gates; on a fused
+    tick the rank rows the readback carries and the classifier on the missed
+    crops) over another stream's recorded readbacks, from a fresh crop-rect
+    cache: (results, f32 probabilities of each classifier call)."""
     stream._rect_cache, stream._prev_crops, stream._last_cls_probs = {}, None, None
     probs = []
     classify = stream._classify_probs
@@ -841,7 +866,9 @@ def replay_tail(stream, calls) -> tuple:
 
     stream._classify_probs = rec_classify
     try:
-        return [stream._finish_batch(*c) for c in calls], probs
+        return [stream._finish_batch(frames, metas, flat, full) if pred is None
+                else stream._finish_batch_fused(frames, metas, flat, pred, full)
+                for frames, metas, flat, full, pred in calls], probs
     finally:
         del stream._classify_probs
 
@@ -1139,6 +1166,319 @@ def serving(dev, gpu_ocr, tmp: str, launches_by_path: dict) -> dict:
     print(json.dumps({"serve_cli_ocr": {"summary": summary, "fields_read_tick0_table0": read,
                                         "field_memo": stats}}))
     return {"serve16": (cand.nms_boxes.contiguous(), cand.valid.contiguous())}
+
+
+CODEC_TABLES, CODEC_JITTER_TICKS, CODEC_WARMUP = 16, 24, 4
+# table 0's other letterbox geometry: 1800x1920 letterboxes onto 640 exactly
+# 3:1 too (600 content rows), so noise within +-7 stays within +-7 on the
+# canvas and the whole-canvas nibble fits
+CODEC_OTHER_HW = (1800, 1920)
+
+
+def jitter_ticks(base: np.ndarray, tables: int, seed: int):
+    """bench.py's jittered stream, per table: each tick a new frame of the
+    table's content plus a global jitter within [-6, 6] per channel, after a
+    local repaint of the content (a 40x120 counter redraw in a flat color
+    with a few dark strokes) that persists. Every table starts from
+    ``base``: one client skin at one window size, so the tables' fields lie
+    at the same pixels, as cli/serve.py's table-sim fleet has them. Yields
+    ticks (lists of frames) forever."""
+    rng = np.random.default_rng(seed)
+    content = [base.copy() for _ in range(tables)]
+    h, w = base.shape[:2]
+    while True:
+        tick = []
+        for c in content:
+            y, x = int(rng.integers(0, h - 40)), int(rng.integers(0, w - 120))
+            c[y:y + 40, x:x + 120] = rng.integers(0, 256, 3, dtype=np.uint8)
+            c[y + 10:y + 30, x + 8:x + 112:16] = rng.integers(0, 80, 3, dtype=np.uint8)
+            jit = rng.integers(-6, 7, (1, 1, 3), np.int16)
+            tick.append(np.clip(c.astype(np.int16) + jit, 0, 255).astype(np.uint8))
+        yield tick
+
+
+def codec_ticks(base: np.ndarray, tables: int, n_jitter: int, seed: int = 0) -> tuple:
+    """The codec phase's ticks and the mode each is planned to take: the
+    tables' first frames (raw), ``n_jitter`` jittered ticks (segs, each with
+    the fused classify), per-pixel noise within +-3 on the last of them
+    (tribit), table 0 at another letterbox geometry (raw), and per-pixel
+    noise within +-7 at that geometry (nibble over the whole canvas).
+    Returns (ticks, planned modes, the jitter generator to go on with)."""
+    rng = np.random.default_rng(seed + 1)
+    gen = jitter_ticks(base, tables, seed)
+    ticks = [next(gen) for _ in range(n_jitter + 1)]
+
+    def noise(frames, a):
+        return [np.clip(f.astype(np.int16) + rng.integers(-a, a + 1, f.shape, dtype=np.int16),
+                        0, 255).astype(np.uint8) for f in frames]
+
+    ticks.append(noise(ticks[-1], 3))
+    ticks.append([cv_resize_u8(base, CODEC_OTHER_HW)] + ticks[-1][1:])
+    ticks.append(noise(ticks[-1], 7))
+    planned = ["raw"] + ["segs"] * n_jitter + ["tribit", "raw", "nibble"]
+    return ticks, planned, gen
+
+
+def segs_shares(counts) -> dict:
+    """Mean share of a segs tick's canvas segments by class group, from the
+    stream's ``canvas_seg_counts`` (nseg, k1, k2, k3, k_raw, k_mask4,
+    k_mask8, ...): zero-payload (const and clamp-shift), dense residuals
+    (1/2/3-bit and shift-residual), sparse exceptions, raw."""
+    rows = [(nseg, k1 + k2 + k3, k4 + k8, kr) for nseg, k1, k2, k3, kr, k4, k8, *_ in counts]
+    return {name: statistics.mean(r[i] / r[0] for r in rows) for i, name in
+            ((1, "dense"), (2, "sparse"), (3, "raw"))} | {
+        "zero_payload": statistics.mean((r[0] - r[1] - r[2] - r[3]) / r[0] for r in rows)}
+
+
+def watch_fused(stream) -> dict:
+    """Wrap the stream's fused tail to record, per fused tick (by the id of
+    its frame list), the (table, detection) pairs whose rank row came from a
+    prediction of another rect of the same class (the near-miss acceptance
+    of ``_finish_batch_fused``): a crop a few pixels over, which may read
+    another rank than the tick's own crop."""
+    near, last = {}, {}
+    assemble, fused = stream._assemble_dets, stream._finish_batch_fused
+
+    def rec_assemble(frames, metas, packed):
+        last["out"] = assemble(frames, metas, packed)
+        return last["out"]
+
+    def rec_fused(frames, metas, flat, pred, full):
+        out = fused(frames, metas, flat, pred, full)
+        pairs, pad = set(), stream.crop_pad
+        for bi, cands in enumerate(last["out"][1]):
+            slot_of = {cr: j for j, cr in enumerate(pred[bi])}
+            for cid, rect, i in cands:
+                if (cid, rect) in slot_of:
+                    continue
+                if any(pc == cid and stream._rect_iou(pr, rect) >= 0.6
+                       and abs(pr[0] + pr[2] - rect[0] - rect[2]) <= 4 * pad
+                       and abs(pr[1] + pr[3] - rect[1] - rect[3]) <= 4 * pad
+                       for pc, pr in slot_of):
+                    pairs.add((bi, i))
+        near[id(frames)] = pairs
+        return out
+
+    stream._assemble_dets, stream._finish_batch_fused = rec_assemble, rec_fused
+    return near
+
+
+def same_results(tag: str, ticks, got: list, ref: list, near: dict) -> dict:
+    """A delta stream's results against the delta=False stream's on the same
+    ticks: every detection equal (class, box, confidence), and every rank text
+    equal but for near-miss rows (``watch_fused``). Returns the counts of rank
+    detections, near-miss rows and texts that differ there, and the first
+    few of those."""
+    if len(got) != len(ref):
+        fail(f"{tag}: {len(got)} ticks against {len(ref)}")
+    listed = []
+    ranks = sum(d["class_name"] in taxonomy.RANK_CLASSES for g in got for dets in g for d in dets)
+    for t, (g, r) in enumerate(zip(got, ref)):
+        pairs = near.get(id(ticks[t]), set())
+        for ti, (gd, rd) in enumerate(zip(g, r)):
+            if len(gd) != len(rd):
+                fail(f"{tag} tick {t} table {ti}: {len(gd)} detections against {len(rd)}")
+            for i, (a, b) in enumerate(zip(gd, rd)):
+                if {k: v for k, v in a.items() if k != "ocr_text"} != \
+                        {k: v for k, v in b.items() if k != "ocr_text"}:
+                    fail(f"{tag} tick {t} table {ti}: {a} against delta=False {b}")
+                if a["ocr_text"] != b["ocr_text"]:
+                    if (ti, i) not in pairs:
+                        fail(f"{tag} tick {t} table {ti}: {a['class_name']} reads "
+                             f"{a['ocr_text']!r}, delta=False {b['ocr_text']!r}")
+                    listed.append([t, ti, a["class_name"], a["bbox"], a["ocr_text"], b["ocr_text"]])
+    return {"rank_detections": ranks,
+            "near_miss_rows": sum(len(near.get(id(t), ())) for t in ticks),
+            "texts_differing_there": len(listed), "first": listed[:6]}
+
+
+def checked_pass(stream, ticks, cases=None) -> list:
+    """Each tick submitted and collected alone; after each, the resident
+    canvas and predicted crop plane on the card equal the host's staging and
+    predicted planes byte for byte. With ``cases``, the first payload of each
+    decoded mode is kept there (with the planes it was decoded against)."""
+    decode = stream._decode
+
+    def keep(item):
+        if cases is not None and item["mode"] in ("nibble", "tribit", "fused") \
+                and item["mode"] not in cases:
+            cases[item["mode"]] = ({k: item[k] for k in ("mode", "rows", "fused") if k in item}
+                                   | {"wire": item["wire"].clone()},
+                                   stream._dev_canvas.clone(), stream._dev_pred_crops.clone())
+        decode(item)
+
+    stream._decode = keep
+    out = []
+    try:
+        for t, frames in enumerate(ticks):
+            stream.submit_batch(frames)
+            out.append(stream.collect_batch())
+            torch.cuda.synchronize()
+            if not torch.equal(stream._dev_canvas.cpu(),
+                               torch.from_numpy(stream._staging[stream._staging_i])):
+                fail(f"codec tick {t}: the resident canvas differs from the host's staging")
+            if stream._pred_prev_crops is not None and not torch.equal(
+                    stream._dev_pred_crops.cpu(), torch.from_numpy(stream._pred_prev_crops)):
+                fail(f"codec tick {t}: the resident crop plane differs from the host's")
+    finally:
+        del stream._decode
+    return out
+
+
+def decode_profile(stream, cases: dict) -> dict:
+    """One torch.profiler trace of each kept payload's decode, as the
+    dispatcher runs it, from the planes it was decoded against: device
+    kernel launches and device ms per tick, and the payload's bytes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def run(mode):
+        item, canvas, crops = cases[mode]
+        stream._dev_canvas, stream._dev_pred_crops = canvas.clone(), crops.clone()
+        torch.cuda.synchronize()
+        with record_function(f"decode_{mode}"):
+            stream._decode(dict(item))
+            torch.cuda.synchronize()
+
+    for mode in cases:
+        run(mode)  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for mode in cases:
+            run(mode)
+    events = prof.events()
+    host = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    names = {e.name for e in host}
+    dev = [e for e in events if str(e.device_type).endswith("CUDA") and e.name not in names]
+    out = {}
+    for mode, (item, _, _) in cases.items():
+        span = [e for e in host if e.name == f"decode_{mode}"]
+        if len(span) != 1:
+            fail(f"the decode trace holds {len(span)} decode_{mode} ranges")
+        lo, hi = span[0].time_range.start, span[0].time_range.end
+        mine = [e for e in dev if lo <= e.time_range.start <= hi]
+        if not mine:
+            fail(f"the decode_{mode} range holds no device events")
+        out[mode] = {"launches": len(mine),
+                     "device_ms": sum(e.time_range.elapsed_us() for e in mine) / 1e3,
+                     "wall_ms": (hi - lo) / 1e3, "payload_mb": item["wire"].numel() / 1e6}
+    return out
+
+
+def codec(dev, launches_by_path: dict) -> None:
+    """Serving with every table changing every tick, so that the delta codec
+    carries it: the main path counted and timed, the same fleet with
+    delta=False, the resident planes checked tick by tick, bf16 and f32 held
+    against delta=False, and the decode traced per mode."""
+    base = cv_resize_u8(imread_bgr(IMAGE), SERVE_HW)
+    ticks, planned, gen = codec_ticks(base, CODEC_TABLES, CODEC_JITTER_TICKS)
+    extra = [next(gen) for _ in range(9)]  # one to come back to one geometry, 2 x 4 traced
+    kw = dict(batch=CODEC_TABLES, imgsz=IMGSZ, conf=0.25, device=dev)
+
+    def four_ticks(stream, it):
+        def run():
+            for _ in range(4):
+                stream.submit_batch(next(it))
+            for _ in range(4):
+                stream.collect_batch()
+        return run
+
+    runs = {}
+    for delta in (True, False):
+        s = load_batch_stream(DETECTOR, CLASSIFIER, compute_dtype=torch.bfloat16, delta=delta, **kw)
+        s.prewarm_async()
+        torch.cuda.synchronize()
+        near = watch_fused(s)
+        nms_kernel.nms_keep.launches = 0
+        results, ms, wall_ms = serve_loop(s, ticks)
+        launches = nms_kernel.nms_keep.launches
+        modes = dict(s.mode_counts)
+        want = ({m: planned.count(m) for m in modes} if delta
+                else {m: len(ticks) * (m == "raw") for m in modes})
+        if modes != want:
+            fail(f"codec (delta={delta}) modes {modes}, planned {want}")
+        if delta:
+            launches_by_path["codec"] = launches
+        if launches != len(ticks) or len(results) != len(ticks):
+            fail(f"codec (delta={delta}): {launches} launches and {len(results)} results over "
+                 f"{len(ticks)} ticks")
+        payload = list(s.stage_stats["payload_mb"])
+        stages = s.stage_summary(skip=CODEC_WARMUP)
+        s.submit_batch(extra[0])
+        s.collect_batch()
+        it = iter(extra[1:])
+        prof = trace_once(four_ticks(s, it), f"codec_ticks_delta_{delta}")
+        runs[delta] = {"stream": s, "modes": modes, "results": results, "ms": ms, "wall_ms": wall_ms,
+                       "near": near, "payload": payload, "stages": stages, "profile": prof}
+        s.close()
+    main = runs[True]["stream"]
+    if not all(runs[True]["modes"][m] for m in ("segs", "tribit", "nibble")) \
+            or main.crop_mode_counts["fused_segs"] < 1:
+        fail(f"the codec phase ran modes {runs[True]['modes']}, crop modes {main.crop_mode_counts}")
+    by_mode = {}
+    for mode, mb in zip(planned, runs[True]["payload"]):
+        by_mode.setdefault(mode, []).append(mb)
+    raw_active_mb = CODEC_TABLES * 400 * IMGSZ * 3 / 1e6
+    steady = {d: r["ms"][CODEC_WARMUP:] for d, r in runs.items()}
+    p50 = lambda st, k: st.get(k, {}).get("p50_ms")  # noqa: E731
+    print(json.dumps({"codec_ms": {
+        "tables": CODEC_TABLES, "ticks": len(ticks), "warmup": CODEC_WARMUP,
+        "frame_hw": list(SERVE_HW), "imgsz": IMGSZ, "detector": "yolov8s bf16", "ocr": False,
+        "planned_modes": planned, "modes": runs[True]["modes"], "crop_modes": main.crop_mode_counts,
+        "fused_hits": main.fused_hits, "fused_misses": main.fused_misses,
+        "fallback_batches": main.fallback_batches, "memo_hits": main.memo_hits,
+        "upload_mb_per_tick_by_planned_mode": {m: statistics.mean(v) for m, v in by_mode.items()},
+        "raw_active_mb": raw_active_mb,
+        "segs_share_by_class": segs_shares(main.stage_stats["canvas_seg_counts"]),
+        "canvas_mb_mean": statistics.mean(main.stage_stats["canvas_mb"]),
+        "crops_mb_mean": statistics.mean(main.stage_stats["crops_mb"]),
+        "submit_encode_p50_ms": p50(runs[True]["stages"], "submit_encode"),
+        "submit_crops_p50_ms": p50(runs[True]["stages"], "submit_crops"),
+        "dispatch_p50_ms": p50(runs[True]["stages"], "dispatch"),
+        "loop_median_ms": statistics.median(steady[True]),
+        "frames_per_s": CODEC_TABLES * len(ticks) / runs[True]["wall_ms"] * 1e3,
+        "stages": runs[True]["stages"],
+        "delta_false": {
+            "loop_median_ms": statistics.median(steady[False]),
+            "frames_per_s": CODEC_TABLES * len(ticks) / runs[False]["wall_ms"] * 1e3,
+            "upload_mb_per_tick": statistics.mean(runs[False]["payload"]),
+            "modes": runs[False]["modes"],
+            "dispatch_p50_ms": p50(runs[False]["stages"], "dispatch"),
+            "submit_encode_p50_ms": p50(runs[False]["stages"], "submit_encode"),
+            "stages": runs[False]["stages"]}}}))
+    print(json.dumps({"codec_profile": {"delta": runs[True]["profile"],
+                                        "delta_false": runs[False]["profile"],
+                                        "ticks": 4, "tables": CODEC_TABLES}}))
+    bf16_near = same_results("codec bf16", ticks, runs[True]["results"], runs[False]["results"],
+                             runs[True]["near"])
+
+    # the resident planes tick by tick, and f32 against delta=False, on the card
+    checked = {}
+    cases = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for delta in (True, False):
+            s = load_batch_stream(DETECTOR, CLASSIFIER, compute_dtype=dtype, delta=delta, **kw)
+            near = watch_fused(s)
+            res = checked_pass(s, ticks, cases if delta and dtype == torch.bfloat16 else None) \
+                if delta else serve_loop(s, ticks)[0]
+            checked[(dtype, delta)] = (s, res, near)
+            if dtype == torch.bfloat16 and delta:
+                decode = decode_profile(s, cases)
+            s.close()
+    listed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        s, res, near = checked[(dtype, True)]
+        if s.mode_counts != runs[True]["modes"]:
+            fail(f"the checked codec pass ran {s.mode_counts}, the main path {runs[True]['modes']}")
+        listed[str(dtype).split(".")[-1]] = same_results(
+            f"codec checked {dtype}", ticks, res, checked[(dtype, False)][1], near)
+    if set(cases) != {"fused", "tribit", "nibble"}:
+        fail(f"the checked codec pass decoded {sorted(cases)}")
+    print(json.dumps({"codec_decode": dict(decode, ticks_by_mode={
+        m: n for m, n in checked[(torch.bfloat16, True)][0].mode_counts.items() if n})}))
+    print(json.dumps({"codec_checks": {
+        "resident_planes_equal_host_every_tick": True,
+        "results_equal_delta_false": {"bfloat16_pipelined": True, "bfloat16": True, "float32": True},
+        "near_miss_rows": {"bfloat16_pipelined": bf16_near, **listed},
+        "nms_launches_equal_ticks": True}}))
 
 
 TRAIN_DET_TRAIN, TRAIN_DET_VALID = 16, 4  # frames of the YOLO dataset written here
@@ -1711,7 +2051,10 @@ def main() -> int:
     if bad or b16.shape[0] != SERVE_TABLES:
         fail(f"kernel and plain keep masks differ in {bad} entries on the serving tick")
 
-    # 12. training: cli.train_cls, cli.train_det (counted), f32 steps against
+    # 12. serving's delta codec: every table changes every tick
+    codec(dev, launches_by_path)
+
+    # 13. training: cli.train_cls, cli.train_det (counted), f32 steps against
     # the CPU, cli.eval_det (counted), and the kernel on one eval batch
     train_cls_phase(dev, tmp)
     det_root, (eval_boxes, eval_scores, eval_kw) = train_det_phase(
@@ -1733,7 +2076,7 @@ def main() -> int:
             fail(f"kernel and plain keep masks differ in {bad} entries on {name}")
         eval_cases[name] = (b, v)
 
-    # 13. timings: the kernel at nine shapes, the rest at the main path's
+    # 14. timings: the kernel at nine shapes, the rest at the main path's
     cases["tiles12"] = tiles12
     cases["tiles6_poker_labeled"] = (ecand.nms_boxes.contiguous(), ecand.valid.contiguous())
     cases["serve16"] = (b16, v16)
@@ -1810,7 +2153,7 @@ def main() -> int:
         "library_ms": None,
     }]}))
 
-    # 14. the device line
+    # 15. the device line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -142,6 +142,9 @@ def main(argv=None) -> int:
         ocr_engine = default_ocr_engine(device=args.device)
         if ocr_engine is None:
             raise FileNotFoundError("--ocr: no recognizer weights found under weights/")
+    # the NMS kernel's build and first launch, cuDNN's algorithm choice for
+    # both models and the pinned crop-plane pools, before the first tick
+    stream.prewarm_async()
 
     def gather_text_fields(frame, dets, ti, refs, crops, names):
         """One table's OCR-eligible crops into the tick-wide batch."""

@@ -1,8 +1,9 @@
 // Host-side C++ of the PyTorch port: CTC decoding for the OCR engine, the
 // PNG row unfilter, and the serving path's frame ring, JSONL appender and
 // pixel loops (BGRA->BGR, crop, odd-integer decimation, cv2's uint8 linear
-// resize), and the detector trainer's augmentation loops (cv2's HSV round
-// trip with a per-channel table, and its bilinear warpAffine).
+// resize) and delta-codec encoders (nibble, tribit, per-segment), and the
+// detector trainer's augmentation loops (cv2's HSV round trip with a
+// per-channel table, and its bilinear warpAffine).
 //
 // Built by runtime/native.py with `g++ -O2 -shared -fPIC` at first use and
 // bound with ctypes (plain C interface, no Python headers). Each function has
@@ -11,11 +12,12 @@
 // `prefix_beam_decode_plain`), png_unfilter against runtime/png.py
 // (`_unfilter`).
 //
-// The CTC functions, FrameRing, JsonLog and the pixel loops are a copy of
-// native/runtime.cpp (the JAX package's host runtime): the same algorithms,
-// the same pruning rules and the same byte layouts. Their plain twins live in
-// runtime/native.py (PlainFrameRing, PlainJsonLog, bgra_to_bgr_plain,
-// crop_u8_plain, decimate_u8_plain); resize_u8's is ops/image.py's
+// The CTC functions, FrameRing, JsonLog, the pixel loops and the encoders are
+// a copy of native/runtime.cpp (the JAX package's host runtime): the same
+// algorithms, the same pruning rules and the same byte layouts. Their plain
+// twins live in runtime/native.py (PlainFrameRing, PlainJsonLog,
+// bgra_to_bgr_plain, crop_u8_plain, decimate_u8_plain, nibble_encode_plain,
+// tribit_encode_plain, seg_encode_plain); resize_u8's is ops/image.py's
 // cv_resize_u8; hsv_jitter_u8's and warp_affine_u8's are train/data.py's
 // hsv_jitter_u8_plain and warp_affine_u8_plain, whose f32 operations they
 // repeat in the same order (the build turns FMA contraction off).
@@ -546,6 +548,805 @@ void warp_affine_u8(const uint8_t *src, int32_t h, int32_t w, const float *a,
       }
     }
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// Serving's delta-codec encoders (runtime/serving.py BatchStream): a copy of
+// native/runtime.cpp's nibble_encode, tribit_encode and seg_encode, with the
+// same byte layouts, cost-based class choice and tie-breaks. Their plain
+// twins are runtime/native.py's nibble_encode_plain, tribit_encode_plain
+// and seg_encode_plain.
+// ---------------------------------------------------------------------------
+// nibble_encode: the tri-mode delta streaming hot encoder (serving.py
+// BatchStream). Semantics match the numpy reference implementation
+// byte-for-byte:
+//   d[i] = cur[i] - prev[i]                    (per byte, int16)
+//   per (slot, channel): span = dmax - dmin; if span > 15 anywhere -> 0
+//   bias = min(max(0, dmax - 7), dmin + 8)     (clipped toward 0)
+//   v[i] = (uint8)(d[i] - bias + 8)            (mod 256, lands in [0, 15])
+//   nib[k] = v[2k] | v[2k+1] << 4
+//   out_bias[slot*3 + c] = (uint8)bias         (mod 256)
+// The numpy version costs ~480 ms/batch (7 strided full-array passes); this
+// fused two-pass loop runs at memory bandwidth (~20 ms/batch, batch 32 @
+// 640x400 active rows). Single-threaded by design: the box has ONE core and
+// ctypes releases the GIL, so the transfer pump thread still makes progress.
+// ---------------------------------------------------------------------------
+int32_t nibble_encode(const uint8_t *cur, const uint8_t *prev, int32_t nslots,
+                      int64_t slot_bytes, int64_t slot_stride,
+                      uint8_t *out_nib, uint8_t *out_bias) {
+  for (int32_t s = 0; s < nslots; ++s) {
+    const uint8_t *c = cur + (size_t)s * slot_stride;
+    const uint8_t *p = prev + (size_t)s * slot_stride;
+    uint8_t *nib = out_nib + (size_t)s * (slot_bytes / 2);
+    // pass 1: per-channel delta min/max via 48 lane accumulators (48 = a
+    // multiple of 3 wide enough for the autovectorizer; lane k tracks
+    // channel k % 3)
+    int16_t mn[48], mx[48];
+    for (int k = 0; k < 48; ++k) {
+      mn[k] = 32767;
+      mx[k] = -32768;
+    }
+    int64_t i = 0;
+    for (; i + 48 <= slot_bytes; i += 48) {
+      for (int k = 0; k < 48; ++k) {
+        int16_t d = (int16_t)c[i + k] - (int16_t)p[i + k];
+        if (d < mn[k]) mn[k] = d;
+        if (d > mx[k]) mx[k] = d;
+      }
+    }
+    int16_t cmn[3] = {32767, 32767, 32767};
+    int16_t cmx[3] = {-32768, -32768, -32768};
+    for (int k = 0; k < 48; ++k) {
+      int ch = k % 3;
+      if (mn[k] < cmn[ch]) cmn[ch] = mn[k];
+      if (mx[k] > cmx[ch]) cmx[ch] = mx[k];
+    }
+    for (; i < slot_bytes; ++i) {
+      int ch = (int)(i % 3);
+      int16_t d = (int16_t)c[i] - (int16_t)p[i];
+      if (d < cmn[ch]) cmn[ch] = d;
+      if (d > cmx[ch]) cmx[ch] = d;
+    }
+    uint8_t add[6];  // (8 - bias) per position, period lcm(3, 2) = 6
+    for (int ch = 0; ch < 3; ++ch) {
+      if (cmx[ch] - cmn[ch] > 15) return 0;
+      int16_t b = (int16_t)(cmx[ch] - 7);
+      if (b < 0) b = 0;
+      if (b > cmn[ch] + 8) b = (int16_t)(cmn[ch] + 8);
+      out_bias[s * 3 + ch] = (uint8_t)b;
+      add[ch] = add[ch + 3] = (uint8_t)(8 - b);
+    }
+    // pass 2: residual + pack, 6 input bytes -> 3 nibble bytes per step
+    int64_t j = 0;
+    i = 0;
+    for (; i + 6 <= slot_bytes; i += 6, j += 3) {
+      uint8_t v0 = (uint8_t)(c[i + 0] - p[i + 0] + add[0]);
+      uint8_t v1 = (uint8_t)(c[i + 1] - p[i + 1] + add[1]);
+      uint8_t v2 = (uint8_t)(c[i + 2] - p[i + 2] + add[2]);
+      uint8_t v3 = (uint8_t)(c[i + 3] - p[i + 3] + add[3]);
+      uint8_t v4 = (uint8_t)(c[i + 4] - p[i + 4] + add[4]);
+      uint8_t v5 = (uint8_t)(c[i + 5] - p[i + 5] + add[5]);
+      nib[j + 0] = (uint8_t)((v0 & 0xF) | (uint8_t)(v1 << 4));
+      nib[j + 1] = (uint8_t)((v2 & 0xF) | (uint8_t)(v3 << 4));
+      nib[j + 2] = (uint8_t)((v4 & 0xF) | (uint8_t)(v5 << 4));
+    }
+    for (; i + 2 <= slot_bytes; i += 2, ++j) {
+      uint8_t v0 = (uint8_t)(c[i] - p[i] + add[i % 3]);
+      uint8_t v1 = (uint8_t)(c[i + 1] - p[i + 1] + add[(i + 1) % 3]);
+      nib[j] = (uint8_t)((v0 & 0xF) | (uint8_t)(v1 << 4));
+    }
+  }
+  return 1;
+}
+
+// ---------------------------------------------------------------------------
+// tribit_encode: 3-bit residuals with PER-ROW biases — the tighter delta
+// mode (3/8 the raw bytes vs the nibble mode's 1/2). Fits when every
+// (slot, row, channel)'s delta span (max - min) <= 7; a per-row-channel
+// bias in [dmax-3, dmin+4] (clipped toward 0) then puts every residual in
+// [-4, 3], stored as v = d - bias + 4 in [0, 7]. Groups of 8 values pack
+// little-endian into 3 bytes:
+//   b0 = v0 | v1<<3 | (v2&3)<<6
+//   b1 = v2>>2 | v3<<1 | v4<<4 | (v5&1)<<7
+//   b2 = v5>>1 | v6<<2 | v7<<5
+// out_bias holds nslots*nh*3 bytes (bias mod 256, row-major). Requires
+// row_bytes = W*3 divisible by 8 (W % 8 == 0; canvas widths are /32).
+// Returns 1, or 0 when any row's span exceeds 7 (caller tries nibble/raw).
+// All arithmetic mod 256 -> bit-exact reconstruction.
+// ---------------------------------------------------------------------------
+int32_t tribit_encode(const uint8_t *cur, const uint8_t *prev, int32_t nslots,
+                      int32_t nh, int32_t width, int64_t slot_stride,
+                      uint8_t *out_bits, uint8_t *out_bias) {
+  const int64_t row_bytes = (int64_t)width * 3;
+  if (row_bytes % 8 != 0) return 0;
+  const int64_t row_out = row_bytes * 3 / 8;
+  for (int32_t s = 0; s < nslots; ++s) {
+    for (int32_t r = 0; r < nh; ++r) {
+      const uint8_t *c = cur + (size_t)s * slot_stride + (size_t)r * row_bytes;
+      const uint8_t *p = prev + (size_t)s * slot_stride + (size_t)r * row_bytes;
+      // row min/max per channel (24-lane accumulators)
+      int16_t mn[24], mx[24];
+      for (int k = 0; k < 24; ++k) {
+        mn[k] = 32767;
+        mx[k] = -32768;
+      }
+      int64_t i = 0;
+      for (; i + 24 <= row_bytes; i += 24) {
+        for (int k = 0; k < 24; ++k) {
+          int16_t d = (int16_t)c[i + k] - (int16_t)p[i + k];
+          if (d < mn[k]) mn[k] = d;
+          if (d > mx[k]) mx[k] = d;
+        }
+      }
+      int16_t cmn[3] = {32767, 32767, 32767};
+      int16_t cmx[3] = {-32768, -32768, -32768};
+      for (int k = 0; k < 24; ++k) {
+        int ch = k % 3;
+        if (mn[k] < cmn[ch]) cmn[ch] = mn[k];
+        if (mx[k] > cmx[ch]) cmx[ch] = mx[k];
+      }
+      for (; i < row_bytes; ++i) {
+        int ch = (int)(i % 3);
+        int16_t d = (int16_t)c[i] - (int16_t)p[i];
+        if (d < cmn[ch]) cmn[ch] = d;
+        if (d > cmx[ch]) cmx[ch] = d;
+      }
+      uint8_t add[6];
+      uint8_t *bias_row = out_bias + ((size_t)s * nh + r) * 3;
+      for (int ch = 0; ch < 3; ++ch) {
+        if (cmx[ch] - cmn[ch] > 7) return 0;
+        int16_t b = (int16_t)(cmx[ch] - 3);
+        if (b < 0) b = 0;
+        if (b > cmn[ch] + 4) b = (int16_t)(cmn[ch] + 4);
+        bias_row[ch] = (uint8_t)b;
+        add[ch] = add[ch + 3] = (uint8_t)(4 - b);
+      }
+      uint8_t *o = out_bits + ((size_t)s * nh + r) * row_out;
+      // 24-byte blocks (lcm(8, 3)): channel offsets k % 3 are compile-time
+      // after unrolling, so the residual pass vectorizes; W % 8 == 0 and
+      // rows are pixel-aligned, so a scalar 8-byte tail covers W % 24 != 0
+      uint8_t v[24];
+      for (i = 0; i + 24 <= row_bytes; i += 24, o += 9) {
+        for (int k = 0; k < 24; ++k)
+          v[k] = (uint8_t)((uint8_t)(c[i + k] - p[i + k] + add[k % 3]) & 7);
+        for (int g = 0; g < 3; ++g) {
+          const uint8_t *w = v + g * 8;
+          o[g * 3 + 0] =
+              (uint8_t)(w[0] | (uint8_t)(w[1] << 3) | (uint8_t)((w[2] & 3) << 6));
+          o[g * 3 + 1] = (uint8_t)((w[2] >> 2) | (uint8_t)(w[3] << 1) |
+                                   (uint8_t)(w[4] << 4) | (uint8_t)((w[5] & 1) << 7));
+          o[g * 3 + 2] =
+              (uint8_t)((w[5] >> 1) | (uint8_t)(w[6] << 2) | (uint8_t)(w[7] << 5));
+        }
+      }
+      for (; i + 8 <= row_bytes; i += 8, o += 3) {
+        for (int k = 0; k < 8; ++k)
+          v[k] = (uint8_t)((uint8_t)(c[i + k] - p[i + k] + add[(i + k) % 3]) & 7);
+        o[0] = (uint8_t)(v[0] | (uint8_t)(v[1] << 3) | (uint8_t)((v[2] & 3) << 6));
+        o[1] = (uint8_t)((v[2] >> 2) | (uint8_t)(v[3] << 1) |
+                         (uint8_t)(v[4] << 4) | (uint8_t)((v[5] & 1) << 7));
+        o[2] = (uint8_t)((v[5] >> 1) | (uint8_t)(v[6] << 2) | (uint8_t)(v[7] << 5));
+      }
+    }
+  }
+  return 1;
+}
+
+// ---------------------------------------------------------------------------
+// seg_encode: per-SEGMENT multi-class delta encoder (the "segs" streaming
+// mode). Each row of the active region splits into width/segw segments of
+// segb = segw*3 bytes; every segment is independently classified by its
+// per-channel delta span and encoded in the cheapest class that fits:
+//
+//   class 0 (const): span == 0 on every channel -> bias IS the delta,
+//                    zero payload bytes
+//   class 1 (1-bit): span <= 1  -> v = d - bias in [0, 1],
+//                    8 values/byte, segb/8 payload bytes
+//   class 2 (2-bit): span <= 3  -> v = d - bias + 2 in [0, 3],
+//                    4 values/byte, segb/4 payload bytes
+//   class 3 (3-bit): span <= 7  -> v = d - bias + 4 in [0, 7],
+//                    8 values per 3 bytes, segb*3/8 payload bytes
+//   class 4 (raw):   anything   -> the segment's cur bytes verbatim
+//   class 5 (clamp-shift): cur == clamp(prev + j, 0, 255) for the SLOT's
+//                    per-channel shift candidate j -> zero payload bytes,
+//                    bias = j mod 256 (decoder sign-extends). This is the
+//                    brightness-change primitive: a global photometric
+//                    shift with clipping makes every segment class 5, so
+//                    the payload collapses to the class/flag arrays. j is
+//                    detected from the slot's first unclippable pixel per
+//                    channel (prev in [64, 191], |j| <= 63) and every
+//                    segment is verified byte-exactly before classifying.
+//   class 6/7 (shift + 2/3-bit residual): cur = clamp(prev + j) + e with a
+//                    small ONE-SIDED per-channel residual e. This is the
+//                    clip-boundary case class 5 cannot absorb: prev was
+//                    itself clipped (information lost), so no pure shift
+//                    reproduces cur — but the error is bounded by the
+//                    previous frame's clip loss, |e| <= |j_prev|. bias
+//                    byte = ((j + 64) & 0x7F) | (m << 7) where m selects
+//                    the residual sign window: e in [0, lim] (m = 0) or
+//                    [-lim, 0] (m = 1), lim = 3 (class 6, payload in the
+//                    2-bit block) / 7 (class 7, 3-bit block). Before this
+//                    class those segments fell to raw (120 B vs 30/45 B) —
+//                    measured 13.5%% of a jittered bench stream's segments.
+//   class 8 (sparse nibble, const base): cur = prev + bias + r where bias
+//                    is the per-channel MODAL delta and r != 0 on few
+//                    bytes, all |r| <= 7. Payload = a TWO-LEVEL deviation
+//                    mask (one L byte whose bits flag dirty 24-byte
+//                    sub-blocks, plus a 3-byte bitmask per dirty
+//                    sub-block — deviations cluster on clip boundaries,
+//                    so most sub-blocks are clean and the two-level form
+//                    averages ~7 B vs the flat segb/8-byte mask's 15) +
+//                    one signed nibble per deviating byte in a shared
+//                    nibble stream. Round-5 measurement: payload
+//                    segments' residuals are SPARSE (median 14 deviating
+//                    of 120 bytes on the bench stream), so mask+nibbles
+//                    beats the dense 2/3-bit classes on most of their
+//                    mass. Requires segb/24 <= 8 (segw <= 64) so the L
+//                    byte covers every sub-block.
+//   class 9 (sparse nibble, shift base): cur = clamp(prev + j) + r, r as
+//                    in class 8 but against the slot's clamp-shift
+//                    prediction (two-sided |r| <= 7 — strictly more
+//                    general than class 6/7's one-sided window). bias
+//                    byte = (j + 64) & 0x7F.
+//   class 10 (sparse byte, const base): as class 8 but r unbounded (mod
+//                    256), one BYTE per deviating position in a shared
+//                    byte stream — catches sparse repaints (sprite edges)
+//                    that fell to raw.
+//
+// Every payload segment takes the BYTE-CHEAPEST class (computed exactly:
+// sparse classes cost segb/8 + ceil(nz/2) or segb/8 + nz); ties prefer
+// the dense classes in order 2,6,3,7,8,9,10,raw (numpy mirror matches
+// bit-for-bit). Biases of the dense classes stay clipped toward 0
+// (zero-delta regions remain maximally transit-compressible); all
+// arithmetic is mod 256 -> bit-exact. Payloads append densely per class
+// in scan order (the device recovers each segment's position from a
+// cumsum over the class array — no offsets on the wire); nibble/byte
+// exception streams pack contiguously ACROSS segments (the device derives
+// each segment's stream offset from an exclusive cumsum of mask
+// popcounts, and each dirty sub-block's 3-byte mask row from an
+// exclusive cumsum of L-byte popcounts). Never fails; out_counts =
+// {n_1bit, n_2bit, n_3bit, n_raw, n_mask4 (classes 8+9), n_mask8
+// (class 10), nz_nibbles, nz_bytes, n_dirty4, n_dirty8}.
+// Requires segw % 8 == 0 (so segb % 24 == 0: whole 24-lane blocks only)
+// and segw <= 64 (two-level mask L byte covers <= 8 sub-blocks).
+// ---------------------------------------------------------------------------
+int32_t seg_encode(const uint8_t *cur, const uint8_t *prev, int32_t nslots,
+                   int32_t nh, int32_t width, int64_t slot_stride,
+                   int32_t segw, uint8_t *out_p1, uint8_t *out_p2,
+                   uint8_t *out_p3, uint8_t *out_raw, uint8_t *out_m4,
+                   uint8_t *out_m8, uint8_t *out_s4, uint8_t *out_s8,
+                   uint8_t *out_nib, uint8_t *out_byte,
+                   uint8_t *out_bias, uint8_t *out_cls,
+                   int64_t *out_counts) {
+  if (segw % 8 != 0 || width % segw != 0 || segw > 64) return 0;
+  const int64_t row_bytes = (int64_t)width * 3;
+  const int32_t nsegrow = width / segw;
+  const int64_t segb = (int64_t)segw * 3;  // % 24 == 0
+  int64_t k1 = 0, k2 = 0, k3 = 0, kr = 0, seg_i = 0;
+  int64_t k4m = 0, k10m = 0, nz4 = 0, nz8 = 0, d4 = 0, d8 = 0;
+  std::vector<uint8_t> xbuf((size_t)segb);  // recentered deltas scratch
+  uint8_t lut[3][256];  // per-slot clamp-shift table: lut[ch][p]=clamp(p+j)
+  for (int32_t s = 0; s < nslots; ++s) {
+    // per-slot clamp-shift candidate: first safe pixel per channel
+    int16_t jj[3] = {0, 0, 0};
+    bool jvalid;
+    {
+      const uint8_t *pbase = prev + (size_t)s * slot_stride;
+      const uint8_t *cbase = cur + (size_t)s * slot_stride;
+      const int64_t n = (int64_t)nh * row_bytes;
+      bool found[3] = {false, false, false};
+      int remaining = 3;
+      for (int64_t i = 0; i < n && remaining; ++i) {
+        const int ch = (int)(i % 3);
+        if (!found[ch] && pbase[i] >= 64 && pbase[i] <= 191) {
+          found[ch] = true;
+          --remaining;
+          jj[ch] = (int16_t)cbase[i] - (int16_t)pbase[i];
+        }
+      }
+      jvalid = remaining == 0 && jj[0] >= -63 && jj[0] <= 63 &&
+               jj[1] >= -63 && jj[1] <= 63 && jj[2] >= -63 && jj[2] <= 63;
+    }
+    if (jvalid) {
+      for (int ch = 0; ch < 3; ++ch)
+        for (int v = 0; v < 256; ++v) {
+          const int16_t x = (int16_t)(v + jj[ch]);
+          lut[ch][v] = (uint8_t)(x < 0 ? 0 : (x > 255 ? 255 : x));
+        }
+    }
+    // whole-slot fast path: when EVERY byte of the slot verifies as
+    // clamp(prev + j) (the global-photometric-jitter case), classify all
+    // its segments 5 in one branchless pass — no per-segment min/max or
+    // verify work. Row-wise early exit keeps repaint slots cheap.
+    if (jvalid && (jj[0] != 0 || jj[1] != 0 || jj[2] != 0)) {
+      bool slot_shift = true;
+      for (int32_t r = 0; r < nh && slot_shift; ++r) {
+        const uint8_t *crow =
+            cur + (size_t)s * slot_stride + (size_t)r * row_bytes;
+        const uint8_t *prow =
+            prev + (size_t)s * slot_stride + (size_t)r * row_bytes;
+        uint8_t acc = 0;
+        int ch = 0;
+        for (int64_t i = 0; i < row_bytes; ++i) {
+          acc |= (uint8_t)(lut[ch][prow[i]] ^ crow[i]);
+          ch = ch == 2 ? 0 : ch + 1;
+        }
+        slot_shift = acc == 0;
+      }
+      if (slot_shift) {
+        const uint8_t b0 = (uint8_t)jj[0], b1 = (uint8_t)jj[1],
+                      b2 = (uint8_t)jj[2];
+        for (int32_t g2 = 0; g2 < nh * nsegrow; ++g2, ++seg_i) {
+          out_cls[seg_i] = 5;
+          uint8_t *bias = out_bias + (size_t)seg_i * 3;
+          bias[0] = b0;
+          bias[1] = b1;
+          bias[2] = b2;
+        }
+        continue;
+      }
+    }
+    for (int32_t r = 0; r < nh; ++r) {
+      const uint8_t *crow = cur + (size_t)s * slot_stride + (size_t)r * row_bytes;
+      const uint8_t *prow = prev + (size_t)s * slot_stride + (size_t)r * row_bytes;
+      for (int32_t g = 0; g < nsegrow; ++g, ++seg_i) {
+        const uint8_t *c = crow + (size_t)g * segb;
+        const uint8_t *p = prow + (size_t)g * segb;
+        // per-channel delta min/max over the RECENTERED mod-256 domain:
+        // v = (c - p) ^ 0x80 maps delta d to d + 128 (mod 256), so byte
+        // min/max classify the span without int16 widening (the pass
+        // autovectorizes as uint8 lanes — it reads 2x the payload bytes
+        // and dominates encode time). Downstream reconstruction is
+        // mod-256 throughout, so a wrapped delta (|d| > 127) classifying
+        // via its residue is still bit-exact.
+        uint8_t mnv[24], mxv[24];
+        uint8_t *xv = xbuf.data();  // recentered deltas, reused downstream
+        for (int k = 0; k < 24; ++k) {
+          mnv[k] = 255;
+          mxv[k] = 0;
+        }
+        for (int64_t i = 0; i + 24 <= segb; i += 24) {
+          for (int k = 0; k < 24; ++k) {
+            uint8_t v = (uint8_t)((uint8_t)(c[i + k] - p[i + k]) ^ 0x80);
+            xv[i + k] = v;
+            if (v < mnv[k]) mnv[k] = v;
+            if (v > mxv[k]) mxv[k] = v;
+          }
+        }
+        int16_t cmn[3] = {32767, 32767, 32767};
+        int16_t cmx[3] = {-32768, -32768, -32768};
+        for (int k = 0; k < 24; ++k) {
+          int ch = k % 3;
+          int16_t lo = (int16_t)mnv[k] - 128;
+          int16_t hi = (int16_t)mxv[k] - 128;
+          if (lo < cmn[ch]) cmn[ch] = lo;
+          if (hi > cmx[ch]) cmx[ch] = hi;
+        }
+        int16_t span = 0;
+        for (int ch = 0; ch < 3; ++ch)
+          if (cmx[ch] - cmn[ch] > span) span = (int16_t)(cmx[ch] - cmn[ch]);
+        uint8_t *bias = out_bias + (size_t)seg_i * 3;
+        bool shifted = false;
+        if (span != 0 && jvalid) {
+          // envelope pre-check (implied by a passing verify: clamp-shift
+          // deltas lie in [min(j,0), max(j,0)] per channel), then exact
+          // byte verification
+          bool env = true;
+          for (int ch = 0; ch < 3 && env; ++ch) {
+            const int16_t lo = jj[ch] < 0 ? jj[ch] : (int16_t)0;
+            const int16_t hi = jj[ch] > 0 ? jj[ch] : (int16_t)0;
+            env = cmn[ch] >= lo && cmx[ch] <= hi;
+          }
+          if (env) {
+            bool ok = true;
+            int vch = 0;
+            for (int64_t i = 0; i < segb && ok; ++i) {
+              ok = c[i] == lut[vch][p[i]];
+              vch = vch == 2 ? 0 : vch + 1;
+            }
+            if (ok) {
+              shifted = true;
+              out_cls[seg_i] = 5;
+              for (int ch = 0; ch < 3; ++ch) bias[ch] = (uint8_t)jj[ch];
+            }
+          }
+        }
+        if (shifted) {
+          // zero payload bytes
+        } else if (span == 0) {
+          out_cls[seg_i] = 0;
+          for (int ch = 0; ch < 3; ++ch) bias[ch] = (uint8_t)cmn[ch];
+        } else {
+          // ---- exact byte-cost selection: dense 1/2/6/3/7 vs sparse
+          // 8/9/10 vs raw (preference on cost ties: 1,2,6,3,7,8,9,10,raw
+          // — the numpy mirror replicates this order bit-for-bit).
+          // Sparse cost = 1 L byte + 3 B per dirty 24-byte sub-block +
+          // the value stream (two-level mask).
+          const int32_t q1b = (int32_t)(segb / 8);
+          const int32_t q2b = (int32_t)(segb / 4);
+          const int32_t q3b = (int32_t)(segb * 3 / 8);
+          const int32_t INF = 1 << 30;
+          // const-modal bias (ties -> smallest value) from the recentered
+          // histogram; bx = the bias in the recentered-u8 domain
+          int16_t biasc[3];
+          uint8_t bx24[24];
+          {
+            int16_t hist[256];
+            for (int ch = 0; ch < 3; ++ch) {
+              const uint8_t base = (uint8_t)(cmn[ch] + 128);
+              const int win = (int)(cmx[ch] - cmn[ch]) + 1;
+              for (int k = 0; k < win; ++k) hist[k] = 0;
+              for (int64_t i = ch; i < segb; i += 3)
+                ++hist[(uint8_t)(xv[i] - base)];
+              int bi = 0;
+              for (int k = 1; k < win; ++k)
+                if (hist[k] > hist[bi]) bi = k;
+              biasc[ch] = (int16_t)(cmn[ch] + bi);
+              for (int rep = ch; rep < 24; rep += 3)
+                bx24[rep] = (uint8_t)(base + bi);
+            }
+          }
+          // branchless const-residual stats in u8 lanes. Admission for the
+          // nibble class is the mod-256 window r in [-8, 7] — exactly the
+          // range a signed nibble decodes bit-exactly, so alias cases
+          // (|true r| huge but congruent) are admitted AND correct.
+          int32_t nz_c = 0, db_c = 0;
+          uint8_t bad8 = 0;
+          {
+            uint8_t cnt24[24] = {0}, bad24[24] = {0};
+            for (int64_t i = 0; i + 24 <= segb; i += 24) {
+              uint8_t any24[24];
+              for (int k = 0; k < 24; ++k) {
+                const uint8_t u = (uint8_t)(xv[i + k] - bx24[k]);
+                const uint8_t nzb = (uint8_t)(u != 0);
+                cnt24[k] += nzb;
+                any24[k] = nzb;
+                bad24[k] |= (uint8_t)((uint8_t)(u + 8) > 15);
+              }
+              uint8_t any = 0;
+              for (int k = 0; k < 24; ++k) any |= any24[k];
+              db_c += (any != 0);
+            }
+            for (int k = 0; k < 24; ++k) {
+              nz_c += cnt24[k];
+              bad8 |= bad24[k];
+            }
+          }
+          // shift-base residual stats (classes 6/7/9); the one/two-sided
+          // windows are mod-256 (admission == decodability, as above).
+          // When no byte of the segment can clamp under j (per-lane
+          // threshold check on prev — the common mid-range case), e is
+          // just (delta - j) mod 256 and the whole pass runs in u8 lanes;
+          // only clip-danger segments take the scalar LUT walk.
+          int32_t nz_s = 0, db_s = 0;
+          bool fit6 = jvalid, fit7 = jvalid, fit9 = jvalid;
+          int16_t off6[3] = {0, 0, 0}, off7[3] = {0, 0, 0};
+          if (jvalid) {
+            uint8_t jm24[24], dhi24[24], dlo24[24];
+            for (int k = 0; k < 24; ++k) {
+              const int ch = k % 3;
+              jm24[k] = (uint8_t)jj[ch];
+              dhi24[k] = jj[ch] > 0 ? (uint8_t)(255 - jj[ch]) : (uint8_t)255;
+              dlo24[k] = jj[ch] < 0 ? (uint8_t)(-jj[ch]) : (uint8_t)0;
+            }
+            uint8_t danger24[24] = {0};
+            for (int64_t i = 0; i + 24 <= segb; i += 24)
+              for (int k = 0; k < 24; ++k) {
+                const uint8_t pv = p[i + k];
+                danger24[k] |=
+                    (uint8_t)((pv > dhi24[k]) | (pv < dlo24[k]));
+              }
+            uint8_t danger = 0;
+            for (int k = 0; k < 24; ++k) danger |= danger24[k];
+            uint8_t cnt24[24] = {0}, bad24[24] = {0};
+            uint8_t p6a[24] = {0}, n6a[24] = {0};
+            uint8_t p7a[24] = {0}, n7a[24] = {0};
+            if (!danger) {
+              for (int64_t i = 0; i + 24 <= segb; i += 24) {
+                uint8_t any = 0;
+                for (int k = 0; k < 24; ++k) {
+                  const uint8_t e =
+                      (uint8_t)((uint8_t)(xv[i + k] ^ 0x80) - jm24[k]);
+                  const uint8_t nzb = (uint8_t)(e != 0);
+                  cnt24[k] += nzb;
+                  any |= nzb;
+                  bad24[k] |= (uint8_t)((uint8_t)(e + 8) > 15);
+                  p6a[k] |= (uint8_t)(e > 3);
+                  n6a[k] |= (uint8_t)((uint8_t)(e + 3) > 3);
+                  p7a[k] |= (uint8_t)(e > 7);
+                  n7a[k] |= (uint8_t)((uint8_t)(e + 7) > 7);
+                }
+                db_s += (any != 0);
+              }
+            } else {
+              int ch = 0;
+              uint8_t any = 0;
+              for (int64_t i = 0; i < segb; ++i) {
+                const uint8_t e = (uint8_t)(c[i] - lut[ch][p[i]]);
+                const uint8_t nzb = (uint8_t)(e != 0);
+                cnt24[ch] += nzb;
+                any |= nzb;
+                bad24[ch] |= (uint8_t)((uint8_t)(e + 8) > 15);
+                p6a[ch] |= (uint8_t)(e > 3);
+                n6a[ch] |= (uint8_t)((uint8_t)(e + 3) > 3);
+                p7a[ch] |= (uint8_t)(e > 7);
+                n7a[ch] |= (uint8_t)((uint8_t)(e + 7) > 7);
+                ch = ch == 2 ? 0 : ch + 1;
+                if ((i + 1) % 24 == 0) {
+                  db_s += (any != 0);
+                  any = 0;
+                }
+              }
+            }
+            uint8_t bad9 = 0;
+            uint8_t pos6[3] = {0, 0, 0}, neg6[3] = {0, 0, 0};
+            uint8_t pos7[3] = {0, 0, 0}, neg7[3] = {0, 0, 0};
+            for (int k = 0; k < 24; ++k) {
+              const int ch = k % 3;
+              nz_s += cnt24[k];
+              bad9 |= bad24[k];
+              pos6[ch] |= p6a[k];
+              neg6[ch] |= n6a[k];
+              pos7[ch] |= p7a[k];
+              neg7[ch] |= n7a[k];
+            }
+            fit9 = !bad9;
+            for (int c3i = 0; c3i < 3; ++c3i) {
+              if (!pos6[c3i]) off6[c3i] = 0;
+              else if (!neg6[c3i]) off6[c3i] = 3;
+              else fit6 = false;
+              if (!pos7[c3i]) off7[c3i] = 0;
+              else if (!neg7[c3i]) off7[c3i] = 7;
+              else fit7 = false;
+            }
+          }
+          const int32_t c1c = span <= 1 ? q1b : INF;
+          const int32_t c2c = span <= 3 ? q2b : INF;
+          const int32_t c6c = fit6 ? q2b : INF;
+          const int32_t c3c = span <= 7 ? q3b : INF;
+          const int32_t c7c = fit7 ? q3b : INF;
+          // classes 8/10 carry a per-segment modal bias that almost never
+          // matches the slot default -> +3 B bias-exception cost; class
+          // 9's bias is the slot shift j in the class-5 byte convention,
+          // which IS the slot default on a photometric tick -> free
+          const int32_t c8c = !bad8 ? 4 + 3 * db_c + (nz_c + 1) / 2 : INF;
+          const int32_t c9c = fit9 ? 1 + 3 * db_s + (nz_s + 1) / 2 : INF;
+          const int32_t c10c = 4 + 3 * db_c + nz_c;
+          int32_t best = (int32_t)segb;  // raw
+          if (c1c < best) best = c1c;
+          if (c2c < best) best = c2c;
+          if (c6c < best) best = c6c;
+          if (c3c < best) best = c3c;
+          if (c7c < best) best = c7c;
+          if (c8c < best) best = c8c;
+          if (c9c < best) best = c9c;
+          if (c10c < best) best = c10c;
+          if (c1c == best) {
+            out_cls[seg_i] = 1;
+            uint8_t add24[24];  // (-bias) per lane
+            for (int ch = 0; ch < 3; ++ch) {
+              int16_t b = (int16_t)(cmx[ch] - 1);
+              if (b < 0) b = 0;
+              if (b > cmn[ch]) b = cmn[ch];
+              bias[ch] = (uint8_t)b;
+              for (int rep = ch; rep < 24; rep += 3)
+                add24[rep] = (uint8_t)(-b);
+            }
+            uint8_t *o = out_p1 + (size_t)k1 * (segb / 8);
+            for (int64_t i = 0; i + 24 <= segb; i += 24, o += 3) {
+              uint8_t v[24];
+              for (int k = 0; k < 24; ++k)
+                v[k] =
+                    (uint8_t)((uint8_t)(c[i + k] - p[i + k] + add24[k]) & 1);
+              for (int gg = 0; gg < 3; ++gg) {
+                const uint8_t *w = v + gg * 8;
+                o[gg] = (uint8_t)(w[0] | (uint8_t)(w[1] << 1) |
+                                  (uint8_t)(w[2] << 2) | (uint8_t)(w[3] << 3) |
+                                  (uint8_t)(w[4] << 4) | (uint8_t)(w[5] << 5) |
+                                  (uint8_t)(w[6] << 6) | (uint8_t)(w[7] << 7));
+              }
+            }
+            ++k1;
+          } else if (c2c == best) {
+            out_cls[seg_i] = 2;
+            uint8_t add12[12];  // (2 - bias) per position, period lcm(3, 4)
+            for (int ch = 0; ch < 3; ++ch) {
+              int16_t b = (int16_t)(cmx[ch] - 1);
+              if (b < 0) b = 0;
+              if (b > cmn[ch] + 2) b = (int16_t)(cmn[ch] + 2);
+              bias[ch] = (uint8_t)b;
+              for (int rep = ch; rep < 12; rep += 3)
+                add12[rep] = (uint8_t)(2 - b);
+            }
+            uint8_t *o = out_p2 + (size_t)k2 * (segb / 4);
+            for (int64_t i = 0; i + 12 <= segb; i += 12, o += 3) {
+              uint8_t v[12];
+              for (int k = 0; k < 12; ++k)
+                v[k] = (uint8_t)((uint8_t)(c[i + k] - p[i + k] + add12[k]) & 3);
+              o[0] = (uint8_t)(v[0] | (uint8_t)(v[1] << 2) |
+                               (uint8_t)(v[2] << 4) | (uint8_t)(v[3] << 6));
+              o[1] = (uint8_t)(v[4] | (uint8_t)(v[5] << 2) |
+                               (uint8_t)(v[6] << 4) | (uint8_t)(v[7] << 6));
+              o[2] = (uint8_t)(v[8] | (uint8_t)(v[9] << 2) |
+                               (uint8_t)(v[10] << 4) | (uint8_t)(v[11] << 6));
+            }
+            ++k2;
+          } else if (c6c == best) {
+            out_cls[seg_i] = 6;
+            for (int ch = 0; ch < 3; ++ch)
+              bias[ch] = (uint8_t)(((jj[ch] + 64) & 0x7F) |
+                                   (off6[ch] ? 0x80 : 0));
+            uint8_t *o = out_p2 + (size_t)k2 * (segb / 4);
+            for (int64_t i = 0; i + 4 <= segb; i += 4, ++o) {
+              uint8_t v4[4];
+              for (int k = 0; k < 4; ++k) {
+                const int ch = (int)((i + k) % 3);
+                v4[k] = (uint8_t)(
+                    (uint8_t)((uint8_t)(c[i + k] - lut[ch][p[i + k]]) +
+                              off6[ch]) & 3);
+              }
+              *o = (uint8_t)(v4[0] | (uint8_t)(v4[1] << 2) |
+                             (uint8_t)(v4[2] << 4) | (uint8_t)(v4[3] << 6));
+            }
+            ++k2;
+          } else if (c3c == best) {
+            out_cls[seg_i] = 3;
+            uint8_t add[6];
+            for (int ch = 0; ch < 3; ++ch) {
+              int16_t b = (int16_t)(cmx[ch] - 3);
+              if (b < 0) b = 0;
+              if (b > cmn[ch] + 4) b = (int16_t)(cmn[ch] + 4);
+              bias[ch] = (uint8_t)b;
+              add[ch] = add[ch + 3] = (uint8_t)(4 - b);
+            }
+            uint8_t *o = out_p3 + (size_t)k3 * (segb * 3 / 8);
+            uint8_t v[24];
+            for (int64_t i = 0; i + 24 <= segb; i += 24, o += 9) {
+              for (int k = 0; k < 24; ++k)
+                v[k] =
+                    (uint8_t)((uint8_t)(c[i + k] - p[i + k] + add[k % 3]) & 7);
+              for (int gg = 0; gg < 3; ++gg) {
+                const uint8_t *w = v + gg * 8;
+                o[gg * 3 + 0] = (uint8_t)(w[0] | (uint8_t)(w[1] << 3) |
+                                          (uint8_t)((w[2] & 3) << 6));
+                o[gg * 3 + 1] =
+                    (uint8_t)((w[2] >> 2) | (uint8_t)(w[3] << 1) |
+                              (uint8_t)(w[4] << 4) | (uint8_t)((w[5] & 1) << 7));
+                o[gg * 3 + 2] = (uint8_t)((w[5] >> 1) | (uint8_t)(w[6] << 2) |
+                                          (uint8_t)(w[7] << 5));
+              }
+            }
+            ++k3;
+          } else if (c7c == best) {
+            out_cls[seg_i] = 7;
+            for (int ch = 0; ch < 3; ++ch)
+              bias[ch] = (uint8_t)(((jj[ch] + 64) & 0x7F) |
+                                   (off7[ch] ? 0x80 : 0));
+            uint8_t *o = out_p3 + (size_t)k3 * (segb * 3 / 8);
+            uint8_t w[24];
+            for (int64_t i = 0; i + 24 <= segb; i += 24, o += 9) {
+              for (int k = 0; k < 24; ++k) {
+                const int ch = k % 3;
+                w[k] = (uint8_t)(
+                    (uint8_t)((uint8_t)(c[i + k] - lut[ch][p[i + k]]) +
+                              off7[ch]) & 7);
+              }
+              for (int gg = 0; gg < 3; ++gg) {
+                const uint8_t *v = w + gg * 8;
+                o[gg * 3 + 0] = (uint8_t)(v[0] | (uint8_t)(v[1] << 3) |
+                                          (uint8_t)((v[2] & 3) << 6));
+                o[gg * 3 + 1] =
+                    (uint8_t)((v[2] >> 2) | (uint8_t)(v[3] << 1) |
+                              (uint8_t)(v[4] << 4) | (uint8_t)((v[5] & 1) << 7));
+                o[gg * 3 + 2] = (uint8_t)((v[5] >> 1) | (uint8_t)(v[6] << 2) |
+                                          (uint8_t)(v[7] << 5));
+              }
+            }
+            ++k3;
+          } else if (c8c == best) {
+            out_cls[seg_i] = 8;
+            for (int ch = 0; ch < 3; ++ch) bias[ch] = (uint8_t)biasc[ch];
+            uint8_t L = 0;
+            uint8_t sm[8][3] = {};
+            int ch = 0;
+            for (int64_t i = 0; i < segb; ++i) {
+              const uint8_t u = (uint8_t)(xv[i] - bx24[ch]);
+              if (u) {
+                const int sb = (int)(i / 24), bp = (int)(i % 24);
+                L |= (uint8_t)(1u << sb);
+                sm[sb][bp >> 3] |= (uint8_t)(1u << (bp & 7));
+                const uint8_t v = (uint8_t)((uint8_t)(u + 8) & 0xF);
+                if (nz4 & 1) out_nib[nz4 >> 1] |= (uint8_t)(v << 4);
+                else out_nib[nz4 >> 1] = v;
+                ++nz4;
+              }
+              ch = ch == 2 ? 0 : ch + 1;
+            }
+            out_m4[k4m] = L;
+            for (int sb = 0; sb < (int)(segb / 24); ++sb)
+              if (L & (1u << sb)) {
+                out_s4[d4 * 3] = sm[sb][0];
+                out_s4[d4 * 3 + 1] = sm[sb][1];
+                out_s4[d4 * 3 + 2] = sm[sb][2];
+                ++d4;
+              }
+            ++k4m;
+          } else if (c9c == best) {
+            out_cls[seg_i] = 9;
+            for (int ch = 0; ch < 3; ++ch)
+              bias[ch] = (uint8_t)jj[ch];  // class-5 convention
+            uint8_t L = 0;
+            uint8_t sm[8][3] = {};
+            int ch = 0;
+            for (int64_t i = 0; i < segb; ++i) {
+              const uint8_t e = (uint8_t)(c[i] - lut[ch][p[i]]);
+              if (e) {
+                const int sb = (int)(i / 24), bp = (int)(i % 24);
+                L |= (uint8_t)(1u << sb);
+                sm[sb][bp >> 3] |= (uint8_t)(1u << (bp & 7));
+                const uint8_t v = (uint8_t)((uint8_t)(e + 8) & 0xF);
+                if (nz4 & 1) out_nib[nz4 >> 1] |= (uint8_t)(v << 4);
+                else out_nib[nz4 >> 1] = v;
+                ++nz4;
+              }
+              ch = ch == 2 ? 0 : ch + 1;
+            }
+            out_m4[k4m] = L;
+            for (int sb = 0; sb < (int)(segb / 24); ++sb)
+              if (L & (1u << sb)) {
+                out_s4[d4 * 3] = sm[sb][0];
+                out_s4[d4 * 3 + 1] = sm[sb][1];
+                out_s4[d4 * 3 + 2] = sm[sb][2];
+                ++d4;
+              }
+            ++k4m;
+          } else if (c10c == best) {
+            out_cls[seg_i] = 10;
+            for (int ch = 0; ch < 3; ++ch) bias[ch] = (uint8_t)biasc[ch];
+            uint8_t L = 0;
+            uint8_t sm[8][3] = {};
+            int ch = 0;
+            for (int64_t i = 0; i < segb; ++i) {
+              const uint8_t u = (uint8_t)(xv[i] - bx24[ch]);
+              if (u) {
+                const int sb = (int)(i / 24), bp = (int)(i % 24);
+                L |= (uint8_t)(1u << sb);
+                sm[sb][bp >> 3] |= (uint8_t)(1u << (bp & 7));
+                out_byte[nz8++] = u;
+              }
+              ch = ch == 2 ? 0 : ch + 1;
+            }
+            out_m8[k10m] = L;
+            for (int sb = 0; sb < (int)(segb / 24); ++sb)
+              if (L & (1u << sb)) {
+                out_s8[d8 * 3] = sm[sb][0];
+                out_s8[d8 * 3 + 1] = sm[sb][1];
+                out_s8[d8 * 3 + 2] = sm[sb][2];
+                ++d8;
+              }
+            ++k10m;
+          } else {
+            out_cls[seg_i] = 4;
+            bias[0] = bias[1] = bias[2] = 0;
+            std::memcpy(out_raw + (size_t)kr * segb, c, (size_t)segb);
+            ++kr;
+          }
+        }
+      }
+    }
+  }
+  out_counts[0] = k1;
+  out_counts[1] = k2;
+  out_counts[2] = k3;
+  out_counts[3] = kr;
+  out_counts[4] = k4m;
+  out_counts[5] = k10m;
+  out_counts[6] = nz4;
+  out_counts[7] = nz8;
+  out_counts[8] = d4;
+  out_counts[9] = d8;
+  return 1;
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@ engine on the card against the CPU, the host C++ library against its plain
 twins (built by the card's host), the batched NMS and the detector
 engine's tiled batch, each in one kernel launch, the serving
 BatchStream: one launch per tick, and its f32 rank reads equal to the CPU's
-over 20 pipelined ticks, and training: three f32 train steps of each model
+over 20 pipelined ticks, its delta codec's decoders on the card bit for bit
+the CPU's, and training: three f32 train steps of each model
 on the card against the CPU, the kernel on one eval batch of candidates
 (B=8, conf 0.001), two bf16 detector steps, and ``cli.train_cls``.
 
@@ -36,6 +37,7 @@ from manual_yolo_tpu_torch.parallel.inference import tiled_frames  # noqa: E402
 from manual_yolo_tpu_torch.runtime.engine import DetectorEngine  # noqa: E402
 from manual_yolo_tpu_torch.cli.serve import table_sim_source  # noqa: E402
 from manual_yolo_tpu_torch.ops.image import cv_resize_u8  # noqa: E402
+from manual_yolo_tpu_torch.runtime import serving as pt_serving  # noqa: E402
 from manual_yolo_tpu_torch.runtime.serving import load_batch_stream  # noqa: E402
 from torch_loop_cases import nms_batch_inputs  # noqa: E402
 from torch_nms_cases import NMS_CASES, nms_case  # noqa: E402
@@ -219,8 +221,9 @@ def _fleet_ticks(tables: int, ticks: int):
 
 @pytest.mark.gpu
 def test_batch_stream_tick_is_one_launch(cuda_device):
-    """Every tick (raw, skip with memo, slots, a dense change) is one forward
-    and one keep-mask launch for all tables."""
+    """Every tick (raw, skip with memo, slots, a dense change, which goes up
+    as segs with the fused classify) is one forward and one keep-mask launch
+    for all tables."""
     base = _fleet_ticks(4, 1)[0]
     rep = [base[0].copy()] + base[1:]
     rep[0][100:200, 300:400] = 0
@@ -231,8 +234,8 @@ def test_batch_stream_tick_is_one_launch(cuda_device):
             s.submit_batch(frames)
             s.collect_batch()
             assert nms_keep.launches == before + 1, i
-        assert s.mode_counts["raw"] == 2 and s.mode_counts["skip"] == 1
-        assert s.mode_counts["slots"] == 1 and s.memo_hits == 1
+        assert s.mode_counts["raw"] == 1 and s.mode_counts["skip"] == 1
+        assert s.mode_counts["slots"] == 1 and s.mode_counts["segs"] == 1 and s.memo_hits == 1
 
 
 def _pipelined(stream, ticks):
@@ -284,11 +287,15 @@ def test_batch_stream_f32_ranks_on_card_match_cpu(cuda_device):
     card = load_batch_stream(DET_N, CLS, device=cuda_device, **kw)
     cpu = load_batch_stream(DET_N, CLS, device="cpu", **kw)
     calls, probs = [], []
-    finish, classify = card._finish_batch, card._classify_probs
+    finish, fused, classify = card._finish_batch, card._finish_batch_fused, card._classify_probs
 
     def rec_finish(frames, metas, flat, full):
-        calls.append((frames, metas, flat.copy(), full.cpu()))
+        calls.append((frames, metas, flat.copy(), full.cpu(), None))
         return finish(frames, metas, flat, full)
+
+    def rec_fused(frames, metas, flat, pred, full):
+        calls.append((frames, metas, flat.copy(), full.cpu(), pred))
+        return fused(frames, metas, flat, pred, full)
 
     def rec_classify(crops):
         out = classify(crops)
@@ -302,7 +309,8 @@ def test_batch_stream_f32_ranks_on_card_match_cpu(cuda_device):
         submit(frames)
         flags.append(card._pending[-1]["memo"])
 
-    card._finish_batch, card._classify_probs, card.submit_batch = rec_finish, rec_classify, rec_submit
+    card._finish_batch, card._finish_batch_fused = rec_finish, rec_fused
+    card._classify_probs, card.submit_batch = rec_classify, rec_submit
     try:
         got, ref = _pipelined(card, ticks), _pipelined(cpu, ticks)
         assert card.mode_counts == cpu.mode_counts and card.memo_hits == cpu.memo_hits
@@ -325,7 +333,9 @@ def test_batch_stream_f32_ranks_on_card_match_cpu(cuda_device):
             return out
 
         cpu._classify_probs = rec_cpu
-        replay = [cpu._finish_batch(*c) for c in calls]
+        replay = [cpu._finish_batch(frames, metas, flat, full) if pred is None
+                  else cpu._finish_batch_fused(frames, metas, flat, pred, full)
+                  for frames, metas, flat, full, pred in calls]
         assert sum(flags) == card.memo_hits and len(probs) == len(ref_probs) > 0
         assert replay == [g for g, memo in zip(got, flags) if not memo]
         assert max(float(np.abs(p - r).max()) for (_, p), r in zip(probs, ref_probs)) <= F32_PROB_TOL
@@ -334,6 +344,60 @@ def test_batch_stream_f32_ranks_on_card_match_cpu(cuda_device):
     finally:
         card.close()
         cpu.close()
+
+
+@pytest.mark.gpu
+def test_codec_decoders_on_card_match_cpu(cuda_device):
+    """Serving's delta-codec decoders on the card against the CPU, bit for bit,
+    and against the encoded plane: segs over a canvas's content rows (a
+    photometric shift that clips, noise, a repaint) and over a crop plane,
+    the content-rows tribit and nibble, and the whole-canvas nibble."""
+    rng = np.random.default_rng(4)
+    B, S, top, nh = 4, 160, 20, 120
+    prev = rng.integers(0, 256, (B, S, S, 3), np.uint8)
+    cur = prev.copy()
+    act = slice(top, top + nh)
+    cur[0, act] = np.clip(prev[0, act].astype(np.int16) + 9, 0, 255).astype(np.uint8)
+    cur[1, act] = np.clip(prev[1, act].astype(np.int16) + rng.integers(-2, 3, (nh, S, 3)),
+                          0, 255).astype(np.uint8)
+    cur[2, top + 5:top + 25, 30:90] = rng.integers(0, 256, (20, 60, 3), np.uint8)
+    small = np.clip(prev.astype(np.int16) + rng.integers(-3, 4, prev.shape), 0, 255).astype(np.uint8)
+
+    def both(decode, payload, prev_plane, *args):
+        out = [decode(torch.from_numpy(payload).to(dev), torch.from_numpy(prev_plane).to(dev),
+                      *args).cpu().numpy() for dev in (cuda_device, "cpu")]
+        np.testing.assert_array_equal(out[0], out[1])
+        return out[0]
+
+    def segs(cur_p, prev_p, top_p, nh_p, segw):
+        n, h, w, _ = cur_p.shape
+        nseg = n * nh_p * (w // segw)
+        bufs = pt_serving.BatchStream._make_segs_bufs(segw, nseg, n * nh_p * w * 3, 1)
+        counts = native.seg_encode(cur_p, prev_p, top_p, nh_p, segw, *(bufs[k] for k in (
+            "p1", "p2", "p3", "raw", "m4", "m8", "s4", "s8", "nib", "byte", "bias", "cls")))
+        segb = segw * 3
+        payload, npb = pt_serving.BatchStream._assemble_segs_payload(
+            bufs, 0, counts, (segb // 8, segb // 4, segb * 3 // 8, segb), nseg, n, n * nh_p * w * 3)
+        got = both(pt_serving._segs_decoder(n, h, w, top_p, nh_p, segw, npb), payload.copy(), prev_p)
+        want = cur_p.copy()
+        want[:, :top_p] = 114
+        want[:, top_p + nh_p:] = 114
+        np.testing.assert_array_equal(got.reshape(cur_p.shape), want)
+
+    segs(cur, prev, top, nh, 40)
+    segs(small[:, :64, :64].copy(), prev[:, :64, :64].copy(), 0, 64, 64)  # 4 crops
+    for kind, rows in (("tribit", (top, nh)), ("nibble", (top, nh)), ("nibble", (0, S))):
+        t, n = rows
+        n_val = B * n * S * 3
+        n_pay, n_bias = (n_val * 3 // 8, B * n * 3) if kind == "tribit" else (n_val // 2, B * 3)
+        payload = np.zeros(n_pay + n_bias, np.uint8)
+        encode = native.tribit_encode if kind == "tribit" else native.nibble_encode
+        assert encode(small, prev, t, n, payload[:n_pay], payload[n_pay:])
+        decode = pt_serving.tribit_decode if kind == "tribit" else pt_serving.nibble_decode
+        got = both(lambda p, q: decode(p, q, B, S, S, t, n), payload, prev)
+        want = prev.copy()
+        want[:, t:t + n] = small[:, t:t + n]
+        np.testing.assert_array_equal(got.reshape(prev.shape), want)
 
 
 def _train_models(variant, device, dtype=torch.float32):

@@ -13,8 +13,9 @@ the example, so the rank path would go untested.
 Tolerance, stream against stream: the same per-table class lists, box
 corners within 1 px (an f32 difference of 1e-4 can cross a 1/16-px step of
 the packed readback), confidences within 0.002; mode_counts, memo_hits and
-readback_overflows equal, except that a dense change the JAX package sends
-through its delta codec (``segs``) goes up raw in the port (asserted).
+readback_overflows equal, the dense change included, which both packages
+send through the delta codec as ``segs`` (with the fused predictive
+classify). The codec itself, mode by mode, is tests/test_torch_codec.py's.
 
 Rank texts are held exactly on the same readback: the JAX package's host
 tail (its ``_finish_batch`` and rank gates, or its streaming engine's crop
@@ -91,26 +92,35 @@ def run(stream, ticks):
 
 def capture_readbacks(ps):
     """Record the inputs of each call of the port stream's host tail: (frames,
-    letterbox metas, packed readback, full plane)."""
+    letterbox metas, packed readback, full plane, and on a fused tick the
+    predicted crop rects, else None)."""
     calls = []
-    inner = ps._finish_batch
+    inner, inner_fused = ps._finish_batch, ps._finish_batch_fused
 
     def record(frames, metas, flat, full):
-        calls.append((frames, metas, flat.copy(), full.cpu().numpy()))
+        calls.append((frames, metas, flat.copy(), full.cpu().numpy(), None))
         return inner(frames, metas, flat, full)
 
-    ps._finish_batch = record
+    def record_fused(frames, metas, flat, pred, full):
+        calls.append((frames, metas, flat.copy(), full.cpu().numpy(), pred))
+        return inner_fused(frames, metas, flat, pred, full)
+
+    ps._finish_batch, ps._finish_batch_fused = record, record_fused
     return calls
 
 
 def jax_tail(js, calls):
-    """The JAX package's host tail (its worker's _finish_batch and its
-    applier's rank gates) over the port's readbacks, from a fresh crop-rect
-    cache and crop chain."""
+    """The JAX package's host tail (its worker's _finish_batch, or
+    _finish_batch_fused on a fused tick, and its applier's rank gates) over
+    the port's readbacks, from a fresh crop-rect cache and crop chain."""
     js._rect_cache, js._prev_crops, js._dev_last_cls_probs = {}, None, None
     out = []
-    for frames, metas, flat, full in calls:
-        results, probs, rows, pairs = js._finish_batch(frames, metas, flat, full)
+    for frames, metas, flat, full, pred in calls:
+        if pred is None:
+            results, probs, rows, pairs = js._finish_batch(frames, metas, flat, full)
+        else:
+            results, probs, rows, pairs = js._finish_batch_fused(frames, metas, flat, pred,
+                                                                 full)
         if pairs:
             probs = np.asarray(probs).reshape(rows, -1)
             for row, (bi, di) in pairs:
@@ -236,17 +246,17 @@ def test_delta_stream_skip_memo_slots_geometry_match_jax(delta_run):
 
 
 def test_delta_stream_dense_change_goes_up_raw(delta_run):
-    """The JAX package codes tick 6 as segs; the port sends it raw (its
-    content rows). The results agree; the counts differ by exactly that."""
+    """Tick 6, a dense change (every table 3 brighter), goes up as segs in
+    both packages, not raw: the same results, the same mode counts after
+    each of ticks 6 and 7, and tick 7 a memo hit in both."""
     jax_out, port_out, _ = delta_run
-    for (got, _, memo), (ref, _, ref_memo) in zip(port_out[6:], jax_out[6:]):
+    for t, ((got, modes, memo), (ref, ref_modes, ref_memo)) in enumerate(zip(port_out[6:],
+                                                                             jax_out[6:]), 6):
         assert_same_dets(got, ref)
+        assert modes == ref_modes, (t, modes, ref_modes)
         assert memo == ref_memo
-    modes, ref_modes = port_out[-1][1], jax_out[-1][1]
-    assert ref_modes["segs"] == 1 and modes["segs"] == 0
-    assert modes["raw"] == ref_modes["raw"] + ref_modes["segs"]
-    assert {k: v for k, v in modes.items() if k not in ("raw", "segs")} == \
-        {k: v for k, v in ref_modes.items() if k not in ("raw", "segs")}
+    assert port_out[6][1]["segs"] == port_out[5][1]["segs"] + 1
+    assert port_out[6][1]["raw"] == port_out[5][1]["raw"]
     assert port_out[-1][2] == jax_out[-1][2] == 3
 
 
@@ -389,8 +399,10 @@ def _small_stream(**kw):
 
 def test_recovers_after_dispatch_failure():
     """A batch that fails in the dispatcher raises in collect_batch; the next
-    tick goes up raw and gives a fresh stream's results."""
-    s, ref = _small_stream(), _small_stream()
+    tick goes up raw and gives a fresh raw stream's results (a fresh delta
+    stream codes that tick, a dense change, as segs with the fused predictive
+    classify, whose rank rows can come from a near-miss rect)."""
+    s, ref = _small_stream(), _small_stream(delta=False)
     frames1 = tables()[:2]
     frames2 = [np.clip(f.astype(np.int16) + 3, 0, 255).astype(np.uint8) for f in frames1]
     try:
