@@ -1,6 +1,7 @@
 """Run the PyTorch port's paths on one CUDA card, and check them: the
 single-screenshot path, the live loop, the hand session, multi-table
-serving, serving's delta codec and training.
+serving, serving's delta codec, training, and the reference's own file
+formats (JPEG screenshots, an ultralytics .pt classifier).
 
     python3 chip_smoke.py
 
@@ -12,7 +13,12 @@ Phases, in order; any failure raises and the exit code is not 0:
   3. build the host C++ library (csrc/host.cpp) with g++ and hold it against
      its plain twins: ctc_beam and ctc_score_multi on seeded log-probs, and the
      PNG row unfilter on the committed example and on a Paeth re-encode of it
-     written here with zlib; time both PNG reads;
+     written here with zlib; time both PNG reads; decode every committed JPEG
+     fixture (tests/torch_jpeg/: the example at each chroma sampling,
+     progressive, with restarts, and a 1200x1920 frame) to the bytes
+     cv2.imread gives (the SHA-256 in tests/torch_jpeg/cv2_decode.json, as
+     this host has no cv2), and time each decode against png.imread_bgr of
+     the same frame as a PNG (``jpeg_decode``);
   4. hold the kernel against its plain PyTorch version on the card, bit for
      bit: K=512 at B=1 and B=4 on seeded boxes with class offsets, the empty
      case, all 512 candidates valid and clustered (full_chain), 16 seeded
@@ -112,7 +118,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      poker_detector_n on the valid split on the card (counted) and the CPU,
      mAP within 1e-3 (``eval_det``); the kernel bit for bit on both eval
      batches (eval8: the trainer's first; eval8_det_n: cli.eval_det's);
- 14. time the kernel's device time from a torch.profiler trace at
+ 14. the reference's formats: a .pt written by tests/torch_pt_cases.py from
+     weights/rank_classifier_matched.npz (fp16 tensors, an ema entry) loads
+     on the card; classify_crops on the example's rank crops equals the
+     CPU's names, confidences within 1e-5, and the .pt logits equal the .npz
+     classifier's (``pt_classifier``); with the launch counter at 0,
+     cli.shot on the JPEG example with the .pt classifier: one launch, and
+     the result JSON of cli.shot on the same decoded pixels as a PNG with the
+     .npz classifier, the time field aside (``jpeg_shot``);
+     build_matched_rank_dataset on a YOLO set of the JPEG fixtures (labels
+     and rank crop names written here) equal on the card and the CPU
+     (``matched_crops``);
+ 15. time the kernel's device time from a torch.profiler trace at
      poker_labeled, full_chain, batch4, batch16, tiles12, the example's 6
      tiles (tiles6_poker_labeled), serve16, eval8 and eval8_det_n (each shape's launches
      inside a record_function range; a range without all of its kernel
@@ -123,7 +140,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      (device busy and idle share, the OCR pass's share, recognizer calls per
      kind, the host time of the beam and rescore); print them and a JSON
      line listing every kernel with its bound and its launches on each path;
- 15. print the device line last.
+ 16. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
 result is printed.
@@ -1837,6 +1854,162 @@ def eval_det_phase(dev, root: str, launches_by_path: dict):
     return calls[0]
 
 
+# ---------------------------------------------------------------------------
+# The reference's file formats: JPEG screenshots and an ultralytics .pt
+
+JPEG_DIR = os.path.join(REPO, "tests", "torch_jpeg")
+JPEG_SHOT = os.path.join(JPEG_DIR, "poker_labeled_420.jpg")
+JPEG_REPS = 5
+CLS_CONF_TOL = 1e-5
+
+
+def test_helpers():
+    """tests/torch_pt_cases.py and tests/torch_train_cases.py (no JAX, no cv2)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_pt_cases
+    import torch_train_cases
+
+    return torch_pt_cases, torch_train_cases
+
+
+def host_ms(fn, reps: int = JPEG_REPS) -> float:
+    """Median host-clock ms of ``fn`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def jpeg_fixtures(tmp: str) -> dict:
+    """Every committed JPEG fixture decodes to the bytes cv2.imread gives
+    (tests/torch_jpeg/cv2_decode.json holds their SHA-256, written where cv2
+    is); decode ms against png.imread_bgr's ms on the same frame as a PNG."""
+    with open(os.path.join(JPEG_DIR, "cv2_decode.json")) as f:
+        expected = json.load(f)["files"]
+    out = {}
+    for name, entry in sorted(expected.items()):
+        path = os.path.join(JPEG_DIR, name)
+        img = imread_bgr(path)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        if digest != entry["sha256"] or list(img.shape) != entry["shape"]:
+            fail(f"{name}: decoded {img.shape} sha256 {digest}, cv2.imread gives "
+                 f"{entry['shape']} {entry['sha256']}")
+        as_png = os.path.join(tmp, name + ".png")
+        png.write_png(as_png, img)
+        out[name] = {"shape": list(img.shape), "bytes": os.path.getsize(path),
+                     "sampling": entry["sampling"], "progressive": entry["progressive"],
+                     "restart_interval": entry["restart_interval"], "equal_cv2": True,
+                     "jpeg_ms": host_ms(lambda: imread_bgr(path)),
+                     "png_ms": host_ms(lambda: imread_bgr(as_png)),
+                     "png_bytes": os.path.getsize(as_png)}
+    print(json.dumps({"jpeg_decode": out}))
+    return out
+
+
+def pt_classifier(dev, tmp: str, frame: np.ndarray, cpu_dets) -> str:
+    """A .pt written from the committed rank classifier (fp16 tensors, an
+    ema entry) loads on the card; classify_crops on the example's rank crops
+    (the boxes of ``cpu_dets``, the CPU f32 pipeline's at conf 0.25) equals
+    the CPU's names with confidences within CLS_CONF_TOL, and the card's .pt
+    logits equal its .npz logits. -> the .pt path."""
+    from manual_yolo_tpu_torch.models.classifier import RankClassifier
+
+    pt_cases, _ = test_helpers()
+    pt = os.path.join(tmp, "rank_classifier_matched.pt")
+    pt_cases.write_from_npz(pt, CLASSIFIER, ema="model_off")
+    t0 = time.perf_counter()
+    card = RankClassifier.from_torch_checkpoint(pt, device=dev)
+    load_s = time.perf_counter() - t0
+    cpu_clf = RankClassifier.from_torch_checkpoint(pt, device="cpu")
+    npz = RankClassifier.from_npz(CLASSIFIER, device=dev)
+    crops = []
+    for d in cpu_dets:
+        if d["class_name"] in taxonomy.RANK_CLASSES:
+            x1, y1, x2, y2 = (int(round(v)) for v in d["bbox"])
+            crops.append(frame[max(y1, 0):y2, max(x1, 0):x2])
+    if len(crops) < 6:
+        fail(f"the example gave {len(crops)} rank crops")
+    got, ref = card.classify_crops(crops), cpu_clf.classify_crops(crops)
+    gap = max(abs(g[1] - r[1]) for g, r in zip(got, ref))
+    if [n for n, _ in got] != [n for n, _ in ref] or gap > CLS_CONF_TOL:
+        fail(f"classify_crops on the card {got} against the CPU {ref}")
+    batch = torch.rand(8, 64, 64, 3, generator=torch.Generator().manual_seed(0)).to(dev)
+    if not torch.equal(card.logits(batch), npz.logits(batch)) or card.names != npz.names:
+        fail("the .pt classifier's logits or names differ from the .npz classifier's on the card")
+    print(json.dumps({"pt_classifier": {
+        "load_s": load_s, "crops": len(crops), "names": [n for n, _ in got],
+        "conf_max_gap_vs_cpu": gap, "equal_npz_logits": True,
+        "classify_crops_ms": host_ms(lambda: card.classify_crops(crops))}}))
+    return pt
+
+
+def jpeg_shot(dev, tmp: str, pt: str, launches_by_path: dict) -> None:
+    """cli.shot on the JPEG example with the .pt classifier (counted: one
+    launch) gives the result of cli.shot on the same decoded pixels as a PNG
+    with the .npz classifier, the time field aside."""
+    from manual_yolo_tpu_torch.cli import shot as shot_cli
+
+    pixels = os.path.join(tmp, "jpeg_pixels.png")
+    png.write_png(pixels, imread_bgr(JPEG_SHOT))
+    results = {}
+    for name, image, clf in (("png_npz", pixels, CLASSIFIER), ("jpeg_pt", JPEG_SHOT, pt)):
+        out_json = os.path.join(tmp, f"{name}.json")
+        buf = io.StringIO()
+        nms_kernel.nms_keep.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = shot_cli.main(["--image", image, "--classifier", clf, "--output-json", out_json,
+                                "--device", dev.type])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"cli.shot on {name} returned {rc}")
+        with open(out_json) as f:
+            results[name] = (json.load(f), nms_kernel.nms_keep.launches, wall_s)
+    (a, _, _), (b, launches, wall_s) = results["png_npz"], results["jpeg_pt"]
+    if {k: v for k, v in a.items() if k != "time"} != {k: v for k, v in b.items() if k != "time"}:
+        fail(f"cli.shot on the JPEG with the .pt differs from the PNG with the .npz:\n{a}\n{b}")
+    if launches != 1:
+        fail(f"cli.shot on the JPEG made {launches} nms_keep launches, expected 1")
+    launches_by_path["jpeg_shot"] = launches
+    print(json.dumps({"jpeg_shot": {"image": os.path.relpath(JPEG_SHOT, REPO),
+                                    "classifier": ".pt (fp16, ema)", "nms_keep_launches": launches,
+                                    "cli_wall_s": wall_s, "equal_png_npz": True,
+                                    "fields": len(b)}}))
+
+
+def matched_phase(dev, tmp: str) -> None:
+    """build_matched_rank_dataset on the card equals its CPU run, on a YOLO
+    set whose screenshots are the committed JPEG fixtures (labels and rank
+    crop names written here)."""
+    from manual_yolo_tpu_torch.train.matched_crops import build_matched_rank_dataset
+
+    _, train_cases = test_helpers()
+    det_root, rank_root = os.path.join(tmp, "matched_det"), os.path.join(tmp, "matched_rank")
+    shots = [os.path.join(JPEG_DIR, f) for f in
+             ("poker_labeled_420.jpg", "poker_labeled_progressive.jpg", "frame_1200x1920.jpg")]
+    train_cases.matched_sources(det_root, rank_root, shots)
+    out = {}
+    for split, jitter in (("train", 2), ("valid", 0)):
+        runs = {}
+        for name, device in (("card", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[name] = build_matched_rank_dataset(rank_root, det_root, split,
+                                                        jitter=jitter, device=device)
+            runs[name + "_s"] = time.perf_counter() - t0
+        (x, y, names), (rx, ry, rnames) = runs["card"], runs["cpu"]
+        if names != rnames or not np.array_equal(y, ry) or not np.array_equal(x, rx):
+            fail(f"build_matched_rank_dataset[{split}] on the card differs from the CPU: "
+                 f"{int((x != rx).sum()) if x.shape == rx.shape else x.shape} bytes")
+        out[split] = {"crops": len(y), "classes": len(set(y.tolist())), "equal_cpu": True,
+                      "card_s": runs["card_s"], "cpu_s": runs["cpu_s"]}
+    print(json.dumps({"matched_crops": out}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1866,8 +2039,9 @@ def main() -> int:
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = tmp_dir.name
 
-    # 3. the host library against its plain twins
+    # 3. the host library against its plain twins; the JPEG fixtures
     host_library(tmp)
+    jpeg_fixtures(tmp)
 
     # 4. kernel vs plain, bit for bit
     gpu = load_fused_pipeline(DETECTOR, CLASSIFIER, imgsz=IMGSZ, conf=CONF, iou=IOU,
@@ -2076,7 +2250,13 @@ def main() -> int:
             fail(f"kernel and plain keep masks differ in {bad} entries on {name}")
         eval_cases[name] = (b, v)
 
-    # 14. timings: the kernel at nine shapes, the rest at the main path's
+    # 14. the reference's formats: a .pt classifier, a JPEG screenshot
+    # through cli.shot (counted), matched crops re-cut from JPEGs
+    pt = pt_classifier(dev, tmp, frame_img, dataclasses.replace(cpu, conf=0.25).process_frame(frame_img))
+    jpeg_shot(dev, tmp, pt, launches_by_path)
+    matched_phase(dev, tmp)
+
+    # 15. timings: the kernel at nine shapes, the rest at the main path's
     cases["tiles12"] = tiles12
     cases["tiles6_poker_labeled"] = (ecand.nms_boxes.contiguous(), ecand.valid.contiguous())
     cases["serve16"] = (b16, v16)
@@ -2153,7 +2333,7 @@ def main() -> int:
         "library_ms": None,
     }]}))
 
-    # 15. the device line
+    # 16. the device line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

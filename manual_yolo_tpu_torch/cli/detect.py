@@ -9,7 +9,7 @@ Defaults come from :class:`manual_yolo_tpu_torch.config.AppConfig`;
 ``--config`` loads a JSON override file and flags override that. The device
 defaults to ``cuda``; without a card the command fails unless ``--device
 cpu`` is given. Sources are the screen (needs ``mss``), ``synthetic``, or
-a PNG file or directory of PNGs. ``--show`` and ``--save-screenshots`` need
+a PNG or JPEG file or directory of them. ``--show`` and ``--save-screenshots`` need
 OpenCV and raise ``NotImplementedError``.
 """
 
@@ -33,7 +33,7 @@ def main(argv=None) -> int:
         description="Live poker table detection (PyTorch port)", parents=[pre]
     )
     ap.add_argument("--source", default="screen",
-                    help="'screen', 'synthetic', or a PNG file or directory")
+                    help="'screen', 'synthetic', or a PNG or JPEG file or directory")
     ap.add_argument("--output-dir", default=cfg.live.output_folder)
     ap.add_argument("--detector", default=cfg.detector.weights)
     ap.add_argument("--classifier", default=cfg.rank.weights)

@@ -10,7 +10,7 @@ follows how much changed, not how many tables are attached.
 The default source simulates a fleet: each table is a base frame that is
 static but for an occasional localized repaint (a card dealt, a bet
 updated) and a rarer global photometric shift. The base is ``--base`` (a
-PNG), or a seeded noise frame.
+PNG or JPEG), or a seeded noise frame.
 
   python -m manual_yolo_tpu_torch.cli.serve --tables 16 --ticks 120
   python -m manual_yolo_tpu_torch.cli.serve --tables 2 --ticks 8 --imgsz 192 \\
@@ -60,9 +60,9 @@ def table_sim_source(
 
 
 def build_sources(spec: str, n: int, hw, base: Optional[str] = None) -> List[Iterator[np.ndarray]]:
-    """``n`` frame sources of (height, width) ``hw``: 'table-sim' (from the PNG
-    ``base``, or seeded noise), 'synthetic', or a PNG file or directory that
-    every table replays."""
+    """``n`` frame sources of (height, width) ``hw``: 'table-sim' (from the
+    PNG or JPEG ``base``, or seeded noise), 'synthetic', or a PNG or JPEG file
+    or directory that every table replays."""
     from manual_yolo_tpu_torch.runtime import capture
 
     if spec == "table-sim":
@@ -96,9 +96,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=60,
                     help="number of batch ticks to run (0 = forever)")
     ap.add_argument("--source", default="table-sim",
-                    help="'table-sim' | 'synthetic' | PNG file or directory")
+                    help="'table-sim' | 'synthetic' | PNG or JPEG file or directory")
     ap.add_argument("--base", default=None,
-                    help="PNG the table-sim source starts from (default: seeded noise)")
+                    help="PNG or JPEG the table-sim source starts from (default: seeded noise)")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1200)
     ap.add_argument("--detector", default=cfg.detector.weights)

@@ -5,6 +5,9 @@ Usage:
       --detector weights/poker_detector.npz \
       --classifier weights/rank_classifier_matched.npz [--device cpu]
 
+The screenshot is a PNG or a JPEG; the classifier a native ``.npz`` or an
+ultralytics ``.pt``.
+
 Defaults come from :class:`manual_yolo_tpu_torch.config.AppConfig`;
 ``--config`` loads a JSON override file, flags override that. The device
 defaults to ``cuda``; without a card the command fails unless
@@ -35,10 +38,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Poker single-screenshot detector (PyTorch port)", parents=[pre]
     )
-    ap.add_argument("--image", required=True, help="input screenshot path (PNG)")
+    ap.add_argument("--image", required=True, help="input screenshot path (PNG or JPEG)")
     ap.add_argument("--output-json", default="poker_result.json")
     ap.add_argument("--detector", default=cfg.detector.weights)
-    ap.add_argument("--classifier", default=cfg.rank.weights)
+    ap.add_argument("--classifier", default=cfg.rank.weights,
+                    help="rank classifier, native .npz or ultralytics .pt")
     ap.add_argument("--imgsz", type=int, default=cfg.detector.imgsz)
     ap.add_argument("--conf", type=float, default=0.5)  # yolo.py:773 main uses 0.5
     ap.add_argument("--iou", type=float, default=cfg.detector.iou)

@@ -3,8 +3,11 @@
     python -m manual_yolo_tpu_torch.cli.train_cls --data <root with train/ and valid/>
 
 Runs on the card unless ``--device cpu`` is given; the dataset's images are
-PNG files. Prints the JAX CLI's JSON (``best_top1``, ``best_epoch``,
-``wall_s``).
+PNG or JPEG files. ``--init-from`` warm-starts from an ultralytics ``.pt``;
+``--build-matched DET_ROOT`` first re-crops the rank crops from the YOLO
+dataset's JPEG screenshots (``train/matched_crops.py``) into
+``--matched-npz`` (``data/rank_matched.npz`` by default) and trains on them
+too. Prints the JAX CLI's JSON (``best_top1``, ``best_epoch``, ``wall_s``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import json
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Train the rank classifier")
     ap.add_argument("--data", default="rank_classifier",
-                    help="folder dataset root with train/ and valid/ (PNG files)")
+                    help="folder dataset root with train/ and valid/ (PNG or JPEG files)")
     ap.add_argument("--out", default="weights/rank_classifier_scratch.npz")
     ap.add_argument("--epochs", type=int, default=50)  # class.py:24
     ap.add_argument("--batch", type=int, default=64)  # class.py:26
@@ -24,21 +27,30 @@ def main(argv=None) -> int:
     ap.add_argument("--patience", type=int, default=10)  # class.py:28
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--scale", default="n")
-    ap.add_argument("--init-from", default=None, help="optional .pt warm start (not ported)")
+    ap.add_argument("--init-from", default=None, help="optional .pt warm start")
     ap.add_argument("--init-from-npz", default=None,
                     help="optional native checkpoint warm start")
     ap.add_argument("--matched-npz", default=None,
                     help="distribution-matched crops npz (train/matched_crops.py)")
     ap.add_argument("--build-matched", default=None, metavar="DET_ROOT",
-                    help="first build the matched npz from this YOLO dataset root (not ported)")
+                    help="first build the matched npz from this YOLO dataset root")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     if args.build_matched:
-        raise NotImplementedError(
-            "--build-matched re-crops the YOLO dataset's JPEG screenshots, which the "
-            "port cannot read yet (ROADMAP Queue 1 item 7); data/rank_matched.npz holds "
-            "the dataset it built")
+        from manual_yolo_tpu_torch.train.matched_crops import (
+            build_matched_rank_dataset,
+            save_matched_dataset,
+        )
+
+        out_npz = args.matched_npz or "data/rank_matched.npz"
+        tr = build_matched_rank_dataset(args.data, args.build_matched, "train", jitter=2,
+                                        device=args.device)
+        va = build_matched_rank_dataset(args.data, args.build_matched, "valid",
+                                        device=args.device)
+        save_matched_dataset(out_npz, train=tr, valid=va)
+        args.matched_npz = out_npz
+        print(f"built {out_npz}: train {tr[0].shape}, valid {va[0].shape}")
 
     from manual_yolo_tpu_torch.train.classifier import ClsTrainConfig, train_classifier
 

@@ -3,7 +3,7 @@
     python -m manual_yolo_tpu_torch.cli.train_det --data <YOLO dataset root>
 
 Runs on the card unless ``--device cpu`` is given; the dataset's images are
-PNG files. ``--steps-per-epoch`` fixes the steps of an epoch (by default the
+PNG or JPEG files. ``--steps-per-epoch`` fixes the steps of an epoch (by default the
 train split's size over the batch). Prints the JAX CLI's JSON
 (``best_map50``, ``best_epoch``, ``wall_s``).
 """

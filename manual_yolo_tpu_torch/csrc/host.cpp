@@ -3,7 +3,9 @@
 // pixel loops (BGRA->BGR, crop, odd-integer decimation, cv2's uint8 linear
 // resize) and delta-codec encoders (nibble, tribit, per-segment), and the
 // detector trainer's augmentation loops (cv2's HSV round trip with a
-// per-channel table, and its bilinear warpAffine).
+// per-channel table, and its bilinear warpAffine), and a baseline and
+// progressive Huffman JPEG decoder (jpeg_decode) that gives the bytes
+// libjpeg-turbo gives with its defaults, as cv2.imread decodes.
 //
 // Built by runtime/native.py with `g++ -O2 -shared -fPIC` at first use and
 // bound with ctypes (plain C interface, no Python headers). Each function has
@@ -20,17 +22,20 @@
 // tribit_encode_plain, seg_encode_plain); resize_u8's is ops/image.py's
 // cv_resize_u8; hsv_jitter_u8's and warp_affine_u8's are train/data.py's
 // hsv_jitter_u8_plain and warp_affine_u8_plain, whose f32 operations they
-// repeat in the same order (the build turns FMA contraction off).
+// repeat in the same order (the build turns FMA contraction off). jpeg_decode
+// has no plain twin: the tests hold it against cv2.imread byte for byte.
 
 #include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <fcntl.h>
 #include <mutex>
 #include <new>
+#include <string>
 #include <unistd.h>
 #include <vector>
 
@@ -1347,6 +1352,939 @@ int32_t seg_encode(const uint8_t *cur, const uint8_t *prev, int32_t nslots,
   out_counts[8] = d4;
   out_counts[9] = d8;
   return 1;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// JPEG decoder
+//
+// Baseline (SOF0), extended 8-bit (SOF1) and progressive (SOF2) Huffman JPEG
+// with 1 or 3 components, integral sampling factors and restart intervals.
+// Each stage repeats libjpeg-turbo's default decompression, so the output is
+// the bytes cv2.imread gives:
+//   * the islow integer IDCT of jidctint.c (13-bit constants, CONST_BITS and
+//     PASS1_BITS descaling, its zero-AC shortcuts and range-limit table);
+//   * the fancy upsamplers of jdsample.c: the triangle filters of h2v1, h1v2
+//     and h2v2 with their +1/+2 and +8/+7 biases and edge columns, the first
+//     and last sample rows repeated above and below; plain replication for
+//     other integral factors and for h2 planes at most 2 samples wide;
+//   * the fixed-point YCbCr->RGB tables of jdcolor.c; RGB files (Adobe
+//     transform 0, or component ids 'R','G','B') are copied; grayscale gives
+//     three equal channels.
+// Coefficients of every scan are kept until the end, so baseline and
+// progressive files share the IDCT and output stages. A complete progressive
+// file needs no block smoothing (libjpeg-turbo smooths only while bits of the
+// first 10 coefficients are missing); an incomplete one raises. So do the
+// streams libjpeg only warns about: data that ends early, a bad Huffman
+// code, a missing restart marker, a bogus progression.
+
+namespace jpeg {
+
+struct Error {
+  std::string msg;
+};
+
+[[noreturn]] static void fail(const std::string& msg) { throw Error{msg}; }
+
+// zigzag position -> natural (row-major) position
+static const int kNatural[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// The tables of Annex K.3, which libjpeg-turbo loads into DC/AC slots 0 and
+// 1 when a file defines none there (motion-JPEG frames leave them out).
+static const uint8_t kStdDcLumBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+static const uint8_t kStdDcChrBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+static const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+static const uint8_t kStdAcLumBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+static const uint8_t kStdAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+static const uint8_t kStdAcChrBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+static const uint8_t kStdAcChrVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+constexpr int kLookBits = 9;
+
+// A Huffman table as jdhuff.c's jpeg_make_d_derived_tbl derives it: codes up
+// to kLookBits long from one lookup, longer ones through maxcode.
+struct Huff {
+  bool defined = false;
+  uint8_t vals[256] = {0};
+  int32_t maxcode[18] = {0};
+  int32_t valoffset[18] = {0};
+  uint16_t look[1 << kLookBits] = {0};  // (length << 8) | symbol; 0: longer
+
+  void build(const uint8_t* bits, const uint8_t* symbols, int count, bool is_dc) {
+    int sizes[257];
+    uint32_t codes[257];
+    int p = 0;
+    for (int l = 1; l <= 16; ++l)
+      for (int i = 0; i < bits[l]; ++i) sizes[p++] = l;
+    sizes[p] = 0;
+    uint32_t code = 0;
+    int si = sizes[0];
+    p = 0;
+    while (sizes[p]) {
+      while (sizes[p] == si) codes[p++] = code++;
+      if (code >= (1u << si)) fail("bad Huffman table");
+      code <<= 1;
+      ++si;
+    }
+    p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      if (bits[l]) {
+        valoffset[l] = p - (int32_t)codes[p];
+        p += bits[l];
+        maxcode[l] = (int32_t)codes[p - 1];
+      } else {
+        maxcode[l] = -1;
+      }
+    }
+    maxcode[17] = 0xFFFFF;
+    std::memset(look, 0, sizeof(look));
+    for (int i = 0; i < count; ++i) {
+      vals[i] = symbols[i];
+      if (is_dc && symbols[i] > 15) fail("bad Huffman table (a DC symbol above 15)");
+      if (sizes[i] <= kLookBits) {
+        int shift = kLookBits - sizes[i];
+        uint32_t first = codes[i] << shift;
+        for (uint32_t j = 0; j < (1u << shift); ++j)
+          look[first + j] = (uint16_t)((sizes[i] << 8) | symbols[i]);
+      }
+    }
+    defined = true;
+  }
+};
+
+// Entropy-coded data: 0xFF 0x00 is a data byte 0xFF, a marker ends the data.
+// Past a marker or the end of the file the reader feeds zero bits, as libjpeg
+// does; taking any of them marks the stream as cut short (`overrun`).
+struct Bits {
+  const uint8_t* p = nullptr;
+  const uint8_t* end = nullptr;
+  uint64_t acc = 0;
+  int n = 0;     // bits in acc, from the top
+  int fake = 0;  // of which the last ones are zero fill
+  bool marker = false;
+  bool overrun = false;
+
+  void reset(const uint8_t* begin, const uint8_t* stop) {
+    p = begin;
+    end = stop;
+    acc = 0;
+    n = fake = 0;
+    marker = overrun = false;
+  }
+
+  void fill() {
+    while (n <= 56) {
+      uint64_t b = 0;
+      bool real = false;
+      if (!marker && p < end) {
+        if (*p != 0xFF) {
+          b = *p++;
+          real = true;
+        } else {
+          const uint8_t* q = p + 1;
+          while (q < end && *q == 0xFF) ++q;  // fill bytes
+          if (q < end && *q == 0x00) {
+            b = 0xFF;
+            p = q + 1;
+            real = true;
+          } else {
+            marker = true;  // p stays on the marker's first 0xFF
+          }
+        }
+      }
+      if (!real) fake += 8;
+      acc |= b << (56 - n);
+      n += 8;
+    }
+  }
+
+  inline void skip(int k) {
+    if (k > n - fake) overrun = true;
+    acc <<= k;
+    n -= k;
+    if (fake > n) fake = n;
+  }
+
+  inline int get(int k) {  // k in 0..16
+    if (k == 0) return 0;
+    if (n < k) fill();
+    int v = (int)(acc >> (64 - k));
+    skip(k);
+    return v;
+  }
+
+  inline int decode(const Huff& t) {
+    if (n < 16) fill();
+    int v = t.look[acc >> (64 - kLookBits)];
+    if (v) {
+      skip(v >> 8);
+      return v & 0xFF;
+    }
+    int l = kLookBits + 1;
+    int32_t code = (int32_t)(acc >> (64 - l));
+    while (l <= 16 && code > t.maxcode[l]) {
+      ++l;
+      code = (int32_t)(acc >> (64 - l));
+    }
+    if (l > 16) fail("corrupt entropy-coded data (a bad Huffman code)");
+    skip(l);
+    return t.vals[code + t.valoffset[l]];
+  }
+
+  // Where reading may resume: the marker that ended the data, or the first
+  // byte not yet taken into the bit buffer.
+  const uint8_t* resume() const { return p; }
+};
+
+static inline int extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
+
+struct Comp {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dc = 0, ac = 0;    // table slots of the current scan
+  int wib = 0, hib = 0;  // blocks that hold image samples
+  int bw = 0, bh = 0;    // blocks in the MCU-padded buffer
+  int dw = 0, dh = 0;    // image samples of the component
+  bool latched = false;
+  bool scanned = false;
+  uint16_t q[64] = {0};  // natural order, latched at the component's first scan
+  int coef_bits[64];
+  int32_t pred = 0;
+  std::vector<int16_t> coef;  // bh * bw blocks of 64 coefficients, natural order
+};
+
+// jdmaster.c's post-IDCT range-limit table, indexed by (value & 1023): -128..127
+// map to 0..255, larger values to 255, smaller to 0 (wrapping past +-512).
+struct RangeLimit {
+  uint8_t t[1024];
+  RangeLimit() {
+    for (int x = 0; x < 1024; ++x)
+      t[x] = (uint8_t)(x < 128 ? 128 + x : x < 512 ? 255 : x < 896 ? 0 : x - 896);
+  }
+};
+
+static const uint8_t* idct_range() {
+  static const RangeLimit table;  // initialised once, thread-safe
+  return table.t;
+}
+
+constexpr int kConstBits = 13;
+constexpr int kPass1Bits = 2;
+constexpr int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
+                  FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
+                  FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
+                  FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
+
+static inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
+
+// jidctint.c's jpeg_idct_islow: dequantize, columns then rows.
+static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride,
+                       const uint8_t* range) {
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* col = in + c;
+    const uint16_t* qc = q + c;
+    int* w = ws + c;
+    if (col[8] == 0 && col[16] == 0 && col[24] == 0 && col[32] == 0 && col[40] == 0 &&
+        col[48] == 0 && col[56] == 0) {
+      int dc = (int)((int64_t)col[0] * qc[0] * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) w[r * 8] = dc;
+      continue;
+    }
+    int64_t z2 = (int64_t)col[16] * qc[16], z3 = (int64_t)col[48] * qc[48];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = (int64_t)col[0] * qc[0];
+    z3 = (int64_t)col[32] * qc[32];
+    int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
+    int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = (int64_t)col[56] * qc[56];
+    tmp1 = (int64_t)col[40] * qc[40];
+    tmp2 = (int64_t)col[24] * qc[24];
+    tmp3 = (int64_t)col[8] * qc[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits - kPass1Bits;
+    w[0] = (int)descale(tmp10 + tmp3, sh);
+    w[56] = (int)descale(tmp10 - tmp3, sh);
+    w[8] = (int)descale(tmp11 + tmp2, sh);
+    w[48] = (int)descale(tmp11 - tmp2, sh);
+    w[16] = (int)descale(tmp12 + tmp1, sh);
+    w[40] = (int)descale(tmp12 - tmp1, sh);
+    w[24] = (int)descale(tmp13 + tmp0, sh);
+    w[32] = (int)descale(tmp13 - tmp0, sh);
+  }
+  const int sh = kConstBits + kPass1Bits + 3;
+  for (int r = 0; r < 8; ++r) {
+    const int* w = ws + r * 8;
+    uint8_t* o = out + (size_t)r * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 && w[6] == 0 && w[7] == 0) {
+      uint8_t dc = range[(int)descale(w[0], kPass1Bits + 3) & 1023];
+      for (int c = 0; c < 8; ++c) o[c] = dc;
+      continue;
+    }
+    int64_t z2 = w[2], z3 = w[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << kConstBits);
+    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = w[7];
+    tmp1 = w[5];
+    tmp2 = w[3];
+    tmp3 = w[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    o[0] = range[(int)descale(tmp10 + tmp3, sh) & 1023];
+    o[7] = range[(int)descale(tmp10 - tmp3, sh) & 1023];
+    o[1] = range[(int)descale(tmp11 + tmp2, sh) & 1023];
+    o[6] = range[(int)descale(tmp11 - tmp2, sh) & 1023];
+    o[2] = range[(int)descale(tmp12 + tmp1, sh) & 1023];
+    o[5] = range[(int)descale(tmp12 - tmp1, sh) & 1023];
+    o[3] = range[(int)descale(tmp13 + tmp0, sh) & 1023];
+    o[4] = range[(int)descale(tmp13 - tmp0, sh) & 1023];
+  }
+}
+
+struct Decoder {
+  const uint8_t* data;
+  size_t len;
+  size_t pos = 0;
+  uint16_t qt[4][64] = {{0}};
+  bool qt_defined[4] = {false, false, false, false};
+  Huff dc_tab[4], ac_tab[4];
+  bool have_frame = false, progressive = false;
+  int width = 0, height = 0, ncomp = 0;
+  Comp comp[3];
+  int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  int restart_interval = 0;
+  bool jfif = false, adobe = false;
+  int adobe_transform = 0;
+  int scans = 0;
+  int64_t app1_pos = -1, app1_len = 0;  // the first APP1 segment's body
+
+  Decoder(const uint8_t* d, size_t n) : data(d), len(n) {
+    dc_tab[0].build(kStdDcLumBits, kStdDcVals, 12, true);
+    dc_tab[1].build(kStdDcChrBits, kStdDcVals, 12, true);
+    ac_tab[0].build(kStdAcLumBits, kStdAcLumVals, 162, false);
+    ac_tab[1].build(kStdAcChrBits, kStdAcChrVals, 162, false);
+  }
+
+  int u8(size_t end) {
+    if (pos >= end) fail("truncated marker segment");
+    return data[pos++];
+  }
+  int u16(size_t end) {
+    int a = u8(end);
+    return (a << 8) | u8(end);
+  }
+
+  // The next marker code at or after pos (skipping stray bytes, as libjpeg
+  // does), or -1 at the end of the data.
+  int next_marker() {
+    for (;;) {
+      while (pos < len && data[pos] != 0xFF) ++pos;
+      while (pos < len && data[pos] == 0xFF) ++pos;
+      if (pos >= len) return -1;
+      int m = data[pos++];
+      if (m != 0) return m;
+    }
+  }
+
+  void read_sof(int m, size_t end) {
+    if (have_frame) fail("a second frame header");
+    int precision = u8(end);
+    height = u16(end);
+    width = u16(end);
+    ncomp = u8(end);
+    if (precision != 8)
+      fail(std::to_string(precision) + "-bit samples (only 8-bit JPEG is read)");
+    if (height == 0) fail("image height 0 (a DNL marker is not supported)");
+    if (width == 0) fail("image width 0");
+    if (ncomp == 4) fail("4 components (CMYK or YCCK)");
+    if (ncomp != 1 && ncomp != 3) fail(std::to_string(ncomp) + " components");
+    for (int i = 0; i < ncomp; ++i) {
+      Comp& c = comp[i];
+      c.id = u8(end);
+      int hv = u8(end);
+      c.h = hv >> 4;
+      c.v = hv & 15;
+      c.tq = u8(end);
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) fail("bad sampling factors");
+      if (c.tq > 3) fail("bad quantization table index");
+      hmax = std::max(hmax, c.h);
+      vmax = std::max(vmax, c.v);
+    }
+    progressive = m == 0xC2;
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int i = 0; i < ncomp; ++i) {
+      Comp& c = comp[i];
+      if (hmax % c.h || vmax % c.v) fail("fractional sampling factors");
+      c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
+      c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
+      c.wib = (c.dw + 7) / 8;
+      c.hib = (c.dh + 7) / 8;
+      c.bw = mcux * c.h;
+      c.bh = mcuy * c.v;
+      c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
+    }
+    have_frame = true;
+  }
+
+  void read_dqt(size_t end) {
+    while (pos < end) {
+      int pq_tq = u8(end);
+      int pq = pq_tq >> 4, tq = pq_tq & 15;
+      if (tq > 3 || pq > 1) fail("bad quantization table");
+      for (int i = 0; i < 64; ++i) qt[tq][kNatural[i]] = (uint16_t)(pq ? u16(end) : u8(end));
+      qt_defined[tq] = true;
+    }
+  }
+
+  void read_dht(size_t end) {
+    while (pos < end) {
+      int tc_th = u8(end);
+      int tc = tc_th >> 4, th = tc_th & 15;
+      if (tc > 1 || th > 3) fail("bad Huffman table index");
+      uint8_t bits[17] = {0};
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) count += bits[l] = (uint8_t)u8(end);
+      if (count > 256) fail("bad Huffman table (more than 256 codes)");
+      uint8_t symbols[256];
+      for (int i = 0; i < count; ++i) symbols[i] = (uint8_t)u8(end);
+      (tc ? ac_tab : dc_tab)[th].build(bits, symbols, count, tc == 0);
+    }
+  }
+
+  void read_sos(size_t end) {
+    if (!have_frame) fail("a scan before the frame header");
+    int ns = u8(end);
+    if (ns < 1 || ns > ncomp) fail("bad component count in a scan");
+    Comp* sc[3];
+    for (int i = 0; i < ns; ++i) {
+      int id = u8(end), tables = u8(end);
+      Comp* c = nullptr;
+      for (int j = 0; j < ncomp; ++j)
+        if (comp[j].id == id) c = &comp[j];
+      if (c == nullptr) fail("a scan names an unknown component");
+      for (int j = 0; j < i; ++j)
+        if (sc[j] == c) fail("a scan names a component twice");
+      c->dc = tables >> 4;
+      c->ac = tables & 15;
+      if (c->dc > 3 || c->ac > 3) fail("bad Huffman table index in a scan");
+      sc[i] = c;
+    }
+    int ss = u8(end), se = u8(end), a = u8(end);
+    int ah = a >> 4, al = a & 15;
+    pos = end;
+    if (progressive) {
+      bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      for (int i = 0; i < ns && !bad; ++i) {
+        int* bits = sc[i]->coef_bits;
+        if (ss > 0 && bits[0] < 0) bad = true;  // AC before DC
+        for (int k = ss; k <= se; ++k) {
+          if (ah != (bits[k] < 0 ? 0 : bits[k])) bad = true;
+          bits[k] = al;
+        }
+      }
+      if (bad) fail("bad progressive scan parameters");
+    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+      fail("bad sequential scan parameters");
+    }
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      blocks += c.h * c.v;
+      if (!c.latched) {
+        if (!qt_defined[c.tq]) fail("a quantization table is missing");
+        std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+        c.latched = true;
+      }
+      bool need_dc = !progressive || (ss == 0 && ah == 0);
+      bool need_ac = !progressive || ss > 0;
+      if ((need_dc && !dc_tab[c.dc].defined) || (need_ac && !ac_tab[c.ac].defined))
+        fail("a Huffman table is missing");
+      c.scanned = true;
+    }
+    if (ns > 1 && blocks > 10) fail("too many blocks in an MCU");
+    decode_scan(sc, ns, ss, se, ah, al);
+    ++scans;
+  }
+
+  void block_seq(Bits& br, Comp& c, int16_t* blk) {
+    int s = br.decode(dc_tab[c.dc]);
+    c.pred += s ? extend(br.get(s), s) : 0;
+    blk[0] = (int16_t)c.pred;
+    const Huff& act = ac_tab[c.ac];
+    for (int k = 1; k < 64; ++k) {
+      int rs = br.decode(act);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > 63) fail("corrupt entropy-coded data (a coefficient past 63)");
+        blk[kNatural[k]] = (int16_t)extend(br.get(s), s);
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  void block_dc_first(Bits& br, Comp& c, int16_t* blk, int al) {
+    int s = br.decode(dc_tab[c.dc]);
+    c.pred += s ? extend(br.get(s), s) : 0;
+    blk[0] = (int16_t)((uint32_t)c.pred << al);
+  }
+
+  void block_ac_first(Bits& br, Comp& c, int16_t* blk, int ss, int se, int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huff& act = ac_tab[c.ac];
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(act);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) fail("corrupt entropy-coded data (a coefficient past the band)");
+        blk[kNatural[k]] = (int16_t)((uint32_t)extend(br.get(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  void block_ac_refine(Bits& br, Comp& c, int16_t* blk, int ss, int se, int al, int& eobrun) {
+    const int p1 = 1 << al, m1 = -p1;
+    int k = ss;
+    if (eobrun == 0) {
+      const Huff& act = ac_tab[c.ac];
+      for (; k <= se; ++k) {
+        int rs = br.decode(act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) fail("corrupt entropy-coded data (a bad refinement code)");
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;
+        }
+        // skip r zero coefficients, appending a correction bit to each
+        // nonzero one passed on the way
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            if (br.get(1) && (*coef & p1) == 0) *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > se) fail("corrupt entropy-coded data (a coefficient past the band)");
+          blk[kNatural[k]] = (int16_t)s;
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0 && br.get(1) && (*coef & p1) == 0)
+          *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+      }
+      --eobrun;
+    }
+  }
+
+  void decode_scan(Comp** sc, int ns, int ss, int se, int ah, int al) {
+    Bits br;
+    br.reset(data + pos, data + len);
+    for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+    int eobrun = 0, next_rst = 0;
+    int64_t cols = ns == 1 ? sc[0]->wib : mcux;
+    int64_t rows = ns == 1 ? sc[0]->hib : mcuy;
+    int64_t total = cols * rows;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval && m > 0 && m % restart_interval == 0) {
+        pos = (size_t)(br.resume() - data);
+        if (next_marker() != 0xD0 + next_rst)
+          fail("a restart marker is missing or out of order");
+        next_rst = (next_rst + 1) & 7;
+        br.reset(data + pos, data + len);
+        for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+        eobrun = 0;
+      }
+      int64_t mx = m % cols, my = m / cols;
+      for (int i = 0; i < ns; ++i) {
+        Comp& c = *sc[i];
+        int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+        for (int v = 0; v < nv; ++v) {
+          for (int h = 0; h < nh; ++h) {
+            int64_t by = my * nv + v, bx = mx * nh + h;
+            int16_t* blk = c.coef.data() + (by * c.bw + bx) * 64;
+            if (!progressive) {
+              block_seq(br, c, blk);
+            } else if (ss == 0) {
+              if (ah == 0)
+                block_dc_first(br, c, blk, al);
+              else if (br.get(1))
+                blk[0] = (int16_t)(blk[0] | (1 << al));
+            } else if (ah == 0) {
+              block_ac_first(br, c, blk, ss, se, al, eobrun);
+            } else {
+              block_ac_refine(br, c, blk, ss, se, al, eobrun);
+            }
+          }
+        }
+      }
+      if (br.overrun) fail("the entropy-coded data ends early (truncated or corrupt file)");
+    }
+    pos = (size_t)(br.resume() - data);
+  }
+
+  // Read the markers and decode every scan; with header_only, stop at the
+  // first scan (the frame size and APP1 are known by then).
+  void parse(bool header_only = false) {
+    if (len < 3 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file (no SOI marker)");
+    pos = 2;
+    for (;;) {
+      int m = next_marker();
+      if (m < 0 || m == 0xD9) break;  // the end of the data, or EOI
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;  // RSTn, TEM: no length
+      if (m == 0xD8) fail("a second SOI marker");
+      size_t seg = pos;
+      pos = seg + 2;
+      if (seg + 2 > len) fail("truncated marker segment");
+      size_t length = ((size_t)data[seg] << 8) | data[seg + 1];
+      if (length < 2 || seg + length > len) fail("truncated marker segment");
+      size_t end = seg + length;
+      switch (m) {
+        case 0xC0:
+        case 0xC1:
+        case 0xC2:
+          read_sof(m, end);
+          break;
+        case 0xC3:
+        case 0xC7:
+          fail("lossless JPEG (SOF" + std::to_string(m - 0xC0) + ")");
+        case 0xC5:
+        case 0xC6:
+        case 0xDE:
+        case 0xDF:
+          fail("hierarchical JPEG");
+        case 0xC9:
+        case 0xCA:
+        case 0xCB:
+        case 0xCD:
+        case 0xCE:
+        case 0xCF:
+        case 0xCC:
+          fail("arithmetic coding");
+        case 0xC4:
+          read_dht(end);
+          break;
+        case 0xDB:
+          read_dqt(end);
+          break;
+        case 0xDD:
+          restart_interval = u16(end);
+          break;
+        case 0xDC:
+          fail("a DNL marker is not supported");
+        case 0xDA:
+          if (header_only) {
+            if (!have_frame) fail("no frame header before the first scan");
+            return;
+          }
+          read_sos(end);
+          continue;  // pos is past the scan's data
+        case 0xE0:
+          if (length >= 16 && std::memcmp(data + seg + 2, "JFIF\0", 5) == 0) jfif = true;
+          break;
+        case 0xE1:
+          if (app1_pos < 0) {
+            app1_pos = (int64_t)seg + 2;
+            app1_len = (int64_t)length - 2;
+          }
+          break;
+        case 0xEE:
+          if (length >= 14 && std::memcmp(data + seg + 2, "Adobe", 5) == 0) {
+            adobe = true;
+            adobe_transform = data[seg + 2 + 11];
+          }
+          break;
+        default:
+          if (!((m >= 0xE0 && m <= 0xEF) || m == 0xFE))
+          {
+            char hex[8];
+            std::snprintf(hex, sizeof(hex), "%02X", m);
+            fail(std::string("an unknown marker 0xFF") + hex);
+          }
+      }
+      pos = end;
+    }
+    if (!have_frame) fail("no frame header");
+    if (header_only) return;
+    if (scans == 0) fail("no scan");
+    for (int i = 0; i < ncomp; ++i) {
+      if (!comp[i].scanned) fail("a component has no scan");
+      if (progressive)
+        for (int k = 0; k < 10; ++k)
+          if (comp[i].coef_bits[k] != 0)
+            fail("an incomplete progressive JPEG (coefficient bits are missing)");
+    }
+  }
+
+  // jdcolor.c's YCbCr->RGB colour space choice for three components
+  bool rgb_file() const {
+    if (jfif) return false;
+    if (adobe) return adobe_transform == 0;
+    return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;  // 'R', 'G', 'B'
+  }
+
+  // The IDCT of every block that holds image samples, into a plane of
+  // wib*8 x hib*8 samples.
+  std::vector<uint8_t> plane(const Comp& c) const {
+    const uint8_t* range = idct_range();
+    size_t stride = (size_t)c.wib * 8;
+    std::vector<uint8_t> out(stride * c.hib * 8);
+    for (int by = 0; by < c.hib; ++by)
+      for (int bx = 0; bx < c.wib; ++bx)
+        idct_islow(c.coef.data() + ((size_t)by * c.bw + bx) * 64, c.q,
+                   out.data() + (size_t)by * 8 * stride + (size_t)bx * 8, (int)stride, range);
+    return out;
+  }
+
+  // One full-resolution output row of a component (jdsample.c).
+  void upsample_row(const Comp& c, const std::vector<uint8_t>& pl, int y, uint8_t* out,
+                    std::vector<int>& colsum, std::vector<uint8_t>& tmp) const {
+    const int fh = hmax / c.h, fv = vmax / c.v;
+    const size_t stride = (size_t)c.wib * 8;
+    const int w = width, dw = c.dw;
+    if (fh == 1 && fv == 1) {
+      std::memcpy(out, pl.data() + (size_t)y * stride, (size_t)w);
+      return;
+    }
+    const bool fancy = (fh == 2 && (fv == 1 || fv == 2) && dw > 2) || (fh == 1 && fv == 2);
+    if (!fancy) {
+      const uint8_t* in = pl.data() + (size_t)(y / fv) * stride;
+      for (int x = 0; x < w; ++x) out[x] = in[x / fh];
+      return;
+    }
+    if (fv == 1) {  // h2v1: 3/4 nearer + 1/4 further sample
+      const uint8_t* in = pl.data() + (size_t)y * stride;
+      tmp.resize((size_t)dw * 2);
+      tmp[0] = in[0];
+      tmp[1] = (uint8_t)((in[0] * 3 + in[1] + 2) >> 2);
+      for (int i = 1; i < dw - 1; ++i) {
+        int v = in[i] * 3;
+        tmp[2 * i] = (uint8_t)((v + in[i - 1] + 1) >> 2);
+        tmp[2 * i + 1] = (uint8_t)((v + in[i + 1] + 2) >> 2);
+      }
+      tmp[2 * dw - 2] = (uint8_t)((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+      tmp[2 * dw - 1] = in[dw - 1];
+      std::memcpy(out, tmp.data(), (size_t)w);
+      return;
+    }
+    // vertical pair: the nearer input row and the one above (even output
+    // rows) or below (odd ones), the edge rows repeated
+    const int iy = y / 2;
+    const int fy = (y & 1) ? std::min(iy + 1, c.dh - 1) : std::max(iy - 1, 0);
+    const uint8_t* in0 = pl.data() + (size_t)iy * stride;
+    const uint8_t* in1 = pl.data() + (size_t)fy * stride;
+    if (fh == 1) {  // h1v2
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < w; ++x) out[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
+      return;
+    }
+    colsum.resize((size_t)dw);  // h2v2
+    for (int i = 0; i < dw; ++i) colsum[i] = in0[i] * 3 + in1[i];
+    tmp.resize((size_t)dw * 2);
+    tmp[0] = (uint8_t)((colsum[0] * 4 + 8) >> 4);
+    tmp[1] = (uint8_t)((colsum[0] * 3 + colsum[1] + 7) >> 4);
+    for (int i = 1; i < dw - 1; ++i) {
+      tmp[2 * i] = (uint8_t)((colsum[i] * 3 + colsum[i - 1] + 8) >> 4);
+      tmp[2 * i + 1] = (uint8_t)((colsum[i] * 3 + colsum[i + 1] + 7) >> 4);
+    }
+    tmp[2 * dw - 2] = (uint8_t)((colsum[dw - 1] * 3 + colsum[dw - 2] + 8) >> 4);
+    tmp[2 * dw - 1] = (uint8_t)((colsum[dw - 1] * 4 + 7) >> 4);
+    std::memcpy(out, tmp.data(), (size_t)w);
+  }
+
+  void output(uint8_t* bgr) const {
+    std::vector<uint8_t> planes[3];
+    for (int i = 0; i < ncomp; ++i) planes[i] = plane(comp[i]);
+    std::vector<uint8_t> rows((size_t)ncomp * width);
+    std::vector<int> colsum;
+    std::vector<uint8_t> tmp;
+    const bool rgb = ncomp == 3 && rgb_file();
+    // jdcolor.c's build_ycc_rgb_table: SCALEBITS 16, FIX(x) rounded
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    const int64_t half = (int64_t)1 << 15;
+    auto fix = [](double x) { return (int64_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + half) >> 16);
+      cb_b[i] = (int)((fix(1.77200) * x + half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + half;
+    }
+    auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+    for (int y = 0; y < height; ++y) {
+      for (int i = 0; i < ncomp; ++i)
+        upsample_row(comp[i], planes[i], y, rows.data() + (size_t)i * width, colsum, tmp);
+      uint8_t* o = bgr + (size_t)y * width * 3;
+      const uint8_t* c0 = rows.data();
+      if (ncomp == 1) {
+        for (int x = 0; x < width; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = c0[x];
+        continue;
+      }
+      const uint8_t* c1 = c0 + width;
+      const uint8_t* c2 = c1 + width;
+      for (int x = 0; x < width; ++x) {
+        if (rgb) {
+          o[3 * x] = c2[x];
+          o[3 * x + 1] = c1[x];
+          o[3 * x + 2] = c0[x];
+          continue;
+        }
+        int yy = c0[x], cb = c1[x], cr = c2[x];
+        o[3 * x] = clamp(yy + cb_b[cb]);
+        o[3 * x + 1] = clamp(yy + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp(yy + cr_r[cr]);
+      }
+    }
+  }
+};
+
+}  // namespace jpeg
+
+extern "C" {
+
+// The JPEG calls return 0, or 1 with a message of at most err_len - 1 bytes
+// in err (also for a file this decoder does not take).
+static int32_t jpeg_error(const std::string& msg, char* err, int32_t err_len) {
+  if (err_len > 0) {
+    size_t n = std::min(msg.size(), (size_t)err_len - 1);
+    std::memcpy(err, msg.data(), n);
+    err[n] = '\0';
+  }
+  return 1;
+}
+
+// Read a JPEG file's markers up to its first scan: info gets the frame's
+// height and width and the offset and length of the first APP1 segment's
+// body (-1 and 0 without one).
+int32_t jpeg_header(const uint8_t* data, int64_t len, int64_t* info, char* err,
+                    int32_t err_len) {
+  try {
+    jpeg::Decoder d(data, (size_t)len);
+    d.parse(true);
+    info[0] = d.height;
+    info[1] = d.width;
+    info[2] = d.app1_pos;
+    info[3] = d.app1_len;
+    return 0;
+  } catch (const jpeg::Error& e) {
+    return jpeg_error(e.msg, err, err_len);
+  }
+}
+
+// Decode a JPEG file held in memory into (height, width, 3) uint8 BGR;
+// height and width are jpeg_header's, and the call checks them again.
+int32_t jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out_bgr, int32_t height,
+                    int32_t width, char* err, int32_t err_len) {
+  try {
+    jpeg::Decoder d(data, (size_t)len);
+    d.parse();
+    if (d.height != height || d.width != width)
+      jpeg::fail("the frame is " + std::to_string(d.width) + "x" + std::to_string(d.height) +
+                 ", not " + std::to_string(width) + "x" + std::to_string(height));
+    d.output(out_bgr);
+    return 0;
+  } catch (const jpeg::Error& e) {
+    return jpeg_error(e.msg, err, err_len);
+  } catch (const std::bad_alloc&) {
+    return jpeg_error("out of memory", err, err_len);
+  }
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@ Counterpart of ``manual_yolo_tpu/models/yolov8.py``. The layer graph
     TF32 default keeps ~3 decimal digits and flips borderline rank reads;
   * ``build_model(..., train=True)`` is the trainable model: f32 master
     weights and explicit BN (``TrainConvBlock``), loaded from and exported to
-    the unfolded tree (``load_jax_params``, ``export_params``).
+    the unfolded tree (``load_jax_params``, ``export_params``);
+  * ``import_torch_state`` maps an ultralytics state dict (``.pt``, read by
+    ``core/weights.py::load_torch_checkpoint``) onto the same tree.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from manual_yolo_tpu_torch.core.device import full_f32
-from manual_yolo_tpu_torch.core.weights import conv_hwio_to_oihw, fold_batchnorm
+from manual_yolo_tpu_torch.core.weights import conv_hwio_to_oihw, conv_oihw_to_hwio, fold_batchnorm
 
 BN_EPS = 1e-3  # ultralytics Conv uses BatchNorm2d(eps=0.001)
 BN_MOMENTUM = 0.03
@@ -495,6 +497,81 @@ def export_params(module: _YOLOv8) -> List[Any]:
         else:
             out.append({})
     return out
+
+
+# ---------------------------------------------------------------------------
+# torch state-dict import (ultralytics names)
+# ---------------------------------------------------------------------------
+
+
+def _import_conv(state: Dict[str, np.ndarray], prefix: str, fold: bool) -> Dict[str, Any]:
+    w = state[prefix + "conv.weight"]
+    if prefix + "bn.weight" in state:
+        g, b = state[prefix + "bn.weight"], state[prefix + "bn.bias"]
+        m, v = state[prefix + "bn.running_mean"], state[prefix + "bn.running_var"]
+        if fold:
+            wf, bf = fold_batchnorm(w, g, b, m, v, BN_EPS)
+            return {"w": wf, "b": bf}
+        return {"w": conv_oihw_to_hwio(w),
+                "bn": {"gamma": g, "beta": b, "mean": m, "var": v}}
+    p = {"w": conv_oihw_to_hwio(w)}
+    if prefix + "conv.bias" in state:
+        p["b"] = state[prefix + "conv.bias"]
+    return p
+
+
+def _import_plain_conv(state, prefix: str) -> Dict[str, Any]:
+    """A bare nn.Conv2d (no BN), e.g. the last conv of each Detect branch."""
+    p = {"w": conv_oihw_to_hwio(state[prefix + "weight"])}
+    if prefix + "bias" in state:
+        p["b"] = state[prefix + "bias"]
+    return p
+
+
+def _import_c2f(state, prefix: str, n: int, fold: bool) -> Dict[str, Any]:
+    return {
+        "cv1": _import_conv(state, prefix + "cv1.", fold),
+        "cv2": _import_conv(state, prefix + "cv2.", fold),
+        "m": [{"cv1": _import_conv(state, f"{prefix}m.{i}.cv1.", fold),
+               "cv2": _import_conv(state, f"{prefix}m.{i}.cv2.", fold)} for i in range(n)],
+    }
+
+
+def import_torch_state(
+    state: Dict[str, np.ndarray], spec: ModelSpec, fold: bool = True
+) -> List[Any]:
+    """An ultralytics flat state dict (``model.{i}.conv.weight``, ``.bn.*``,
+    ``m.{j}.cv1.``, ``linear.weight``, a Detect head's ``cv2.{i}``/``cv3.{i}``)
+    as the JAX-layout tree of numpy arrays that ``load_jax_params`` takes.
+    Counterpart of ``manual_yolo_tpu/models/yolov8.py:292-340``.
+
+    ``fold=True`` folds BatchNorm into conv biases (inference); ``fold=False``
+    keeps ``bn`` dicts, for the trainer's warm start. A missing key raises
+    ``KeyError``."""
+    params: List[Any] = []
+    for idx, layer in enumerate(spec.layers):
+        pre = f"model.{idx}."
+        if layer.kind == "conv":
+            params.append(_import_conv(state, pre, fold))
+        elif layer.kind == "c2f":
+            params.append(_import_c2f(state, pre, layer.n, fold))
+        elif layer.kind == "sppf":
+            params.append({"cv1": _import_conv(state, pre + "cv1.", fold),
+                           "cv2": _import_conv(state, pre + "cv2.", fold)})
+        elif layer.kind == "classify":
+            params.append({"conv": _import_conv(state, pre + "conv.", fold),
+                           "linear": {"w": np.ascontiguousarray(state[pre + "linear.weight"].T),
+                                      "b": state[pre + "linear.bias"]}})
+        elif layer.kind == "detect":
+            params.append({
+                key: [{"0": _import_conv(state, f"{pre}{branch}.{i}.0.", fold),
+                       "1": _import_conv(state, f"{pre}{branch}.{i}.1.", fold),
+                       "2": _import_plain_conv(state, f"{pre}{branch}.{i}.2.")}
+                      for i in range(len(spec.out_channels))]
+                for key, branch in (("box", "cv2"), ("cls", "cv3"))})
+        else:
+            params.append({})
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
-"""Frame sources: screen capture (gated), PNG files, synthetic.
+"""Frame sources: screen capture (gated), PNG and JPEG files, synthetic.
 
 Counterpart of ``manual_yolo_tpu/runtime/capture.py``. Sources share one
 iterator protocol so every pipeline can run off a screen, a directory of
 screenshots, or a synthetic generator (tests, bench).
 
-Files are read by the port's PNG reader (``runtime/png.py``; BGR, as
-``cv2.imread`` gives). A JPEG, a BMP or a video raises ``ValueError``:
-the port reads PNG only, and a file it cannot read is never skipped.
+Files are read by ``runtime/png.py::imread_bgr`` (PNG, or JPEG through
+``runtime/jpeg.py``; BGR, as ``cv2.imread`` gives), chosen by the file's first
+bytes. A BMP, any other file or a video raises ``ValueError`` naming it: a
+file the port cannot read is never skipped.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from manual_yolo_tpu_torch.runtime.png import SUPPORTED, imread_bgr
+from manual_yolo_tpu_torch.runtime.png import image_format, imread_bgr
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")  # what the JAX package lists in a directory
+VIDEO_EXTS = (".mp4", ".avi", ".mkv", ".mov")  # what the JAX package opens as a video
 
 
 def screen_source(
@@ -50,20 +52,20 @@ def screen_source(
             yield np.ascontiguousarray(shot[..., :3])  # BGRA -> BGR
 
 
-def _png_only(path: str) -> None:
-    if not path.lower().endswith(".png"):
-        raise ValueError(
-            f"{path}: the port's frame sources read PNG files only "
-            f"(runtime/png.py: {SUPPORTED}); convert it to PNG"
-        )
+def _check_readable(path: str) -> None:
+    """``ValueError`` naming the file unless it is a PNG or a JPEG."""
+    if path.lower().endswith(VIDEO_EXTS):
+        raise ValueError(f"{path}: a video file; the port's frame sources read PNG and "
+                         "JPEG files only")
+    image_format(path)
 
 
 def file_source(path: str, loop: bool = False) -> Iterator[np.ndarray]:
-    """Single PNG image, or directory of images (PNG only) -> BGR frames.
+    """Single PNG or JPEG image, or directory of them -> BGR frames.
 
     A directory's image files are read in sorted order, as the JAX package
-    lists them; any of them that is not a PNG raises before the first frame.
-    A video file raises too."""
+    lists them; any of them that is not a PNG or a JPEG (a BMP) raises before
+    the first frame. A video file raises too."""
     if os.path.isdir(path):
         files = sorted(
             os.path.join(path, f)
@@ -71,12 +73,12 @@ def file_source(path: str, loop: bool = False) -> Iterator[np.ndarray]:
             if f.lower().endswith(IMAGE_EXTS)
         )
         for f in files:
-            _png_only(f)
+            _check_readable(f)
         it = itertools.cycle(files) if loop else iter(files)
         for f in it:
             yield imread_bgr(f)
     else:
-        _png_only(path)
+        _check_readable(path)
         img = imread_bgr(path)
         while True:
             yield img.copy()
@@ -96,7 +98,7 @@ def synthetic_source(
 
 
 def make_source(spec: str, **kwargs) -> Iterator[np.ndarray]:
-    """'screen' | 'synthetic' | a PNG file or directory path."""
+    """'screen' | 'synthetic' | a PNG or JPEG file or directory path."""
     if spec == "screen":
         return screen_source(**kwargs)
     if spec == "synthetic":

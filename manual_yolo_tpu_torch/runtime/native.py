@@ -5,7 +5,9 @@ rescore, the serving path's frame ring, JSONL appender and pixel loops
 (``bgra_to_bgr``, ``crop_u8``, ``decimate_u8_into``, ``resize_u8``), its
 delta-codec encoders (``nibble_encode``, ``tribit_encode``, ``seg_encode``)
 and the libc ``memcmp`` compare, plus the PNG row unfilter of
-``runtime/png.py`` and the detector trainer's ``hsv_jitter_u8`` and
+``runtime/png.py``, the JPEG decoder of ``runtime/jpeg.py`` (``jpeg_decode``;
+held against ``cv2.imread`` in the tests, it has no Python twin) and the
+detector trainer's ``hsv_jitter_u8`` and
 ``warp_affine_u8`` (their twins are in ``train/data.py``). The library is
 compiled by ``g++ -O2 -ffp-contract=off -shared -fPIC`` at first use into ``manual_yolo_tpu_torch/_build/``
 (git-ignored), named by a hash of the source and the flags, as
@@ -76,6 +78,10 @@ def library() -> ctypes.CDLL:
     lib.png_unfilter.argtypes = [p, i32, i32, i32, p]
     lib.png_unfilter.restype = i32
     i64 = ctypes.c_int64
+    lib.jpeg_header.argtypes = [p, i64, p, ctypes.c_char_p, i32]
+    lib.jpeg_header.restype = i32
+    lib.jpeg_decode.argtypes = [p, i64, p, i32, i32, ctypes.c_char_p, i32]
+    lib.jpeg_decode.restype = i32
     lib.fr_create.argtypes = [i32, i64]
     lib.fr_create.restype = p
     lib.fr_destroy.argtypes = [p]
@@ -166,6 +172,26 @@ def png_unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndar
     if bad:
         raise ValueError(f"bad PNG filter type {raw[(bad - 1) * (stride + 1)]} in row {bad - 1}")
     return out
+
+
+def jpeg_decode(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
+    """Decode a whole JPEG file held in ``data`` into (height, width, 3)
+    uint8 BGR, and give the body of its first APP1 segment (``None`` without
+    one). The frame size comes from the decoder's own marker walk; the decode
+    is one call with the interpreter lock released (``ctypes.CDLL``). A stream
+    the decoder does not take raises ``ValueError`` with its reason."""
+    lib = library()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(4, np.int64)
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_header(buf.ctypes.data, buf.size, info.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode(errors="replace"))
+    height, width, app1_pos, app1_len = (int(v) for v in info)
+    out = np.empty((height, width, 3), np.uint8)
+    if lib.jpeg_decode(buf.ctypes.data, buf.size, out.ctypes.data, height, width,
+                       err, len(err)):
+        raise ValueError(err.value.decode(errors="replace"))
+    return out, (bytes(data[app1_pos:app1_pos + app1_len]) if app1_pos >= 0 else None)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
 """A PNG reader and writer (standard library ``zlib``, numpy and the port's
-host library).
+host library), and ``imread_bgr``, the port's ``cv2.imread``.
 
-It stands in for ``cv2.imread`` on the single-screenshot path, so the port
-does not depend on OpenCV, and gives what ``cv2.imread(path)`` gives: three
-8-bit channels. It reads every PNG that the standard allows: grayscale, RGB
+``imread_bgr`` picks the reader by the file's first bytes, as cv2 picks its
+decoder: the PNG signature for ``read_png``, ``FF D8 FF`` for
+``runtime/jpeg.py::read_jpeg``; any other file raises ``ValueError``. Both
+give what ``cv2.imread(path)`` gives: three 8-bit channels, BGR, so the port
+does not depend on OpenCV.
+
+``read_png`` reads every PNG that the standard allows: grayscale, RGB
 and palette images, with or without alpha, at 1 to 16 bits per sample,
 interlaced (Adam7) or not. Alpha is dropped without compositing, 16-bit
 samples keep their high byte, and grayscale below 8 bits is scaled to 0..255,
@@ -24,10 +28,11 @@ import zlib
 
 import numpy as np
 
-from manual_yolo_tpu_torch.runtime import native
+from manual_yolo_tpu_torch.runtime import jpeg, native
 
-SUPPORTED = ("PNG: grayscale, RGB or palette, with or without alpha, 1 to 16 bits "
-             "per sample, interlaced or not")
+PNG_SUPPORTED = ("PNG: grayscale, RGB or palette, with or without alpha, 1 to 16 bits "
+                 "per sample, interlaced or not")
+SUPPORTED = f"{PNG_SUPPORTED}; {jpeg.SUPPORTED}"
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, allowed bit depths)
 _FORMATS = {
@@ -93,7 +98,7 @@ def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndar
 
 
 def _bad(path: str, why: str) -> ValueError:
-    return ValueError(f"{path}: {why}; only PNG files are read ({SUPPORTED})")
+    return ValueError(f"{path}: {why}; only PNG files are read ({PNG_SUPPORTED})")
 
 
 def read_png(path: str) -> np.ndarray:
@@ -163,10 +168,25 @@ def read_png(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
+def image_format(path: str) -> str:
+    """"png" or "jpeg" by the file's first bytes; ``ValueError`` naming the
+    file for anything else (BMP, a video, ...)."""
+    with open(path, "rb") as f:
+        head = f.read(len(_SIGNATURE))
+    if head == _SIGNATURE:
+        return "png"
+    if head.startswith(jpeg.SIGNATURE):
+        return "jpeg"
+    raise ValueError(f"{path}: not a PNG or JPEG file; the port reads PNG and JPEG only "
+                     f"({SUPPORTED})")
+
+
 def imread_bgr(path: str) -> np.ndarray:
-    """Read an image file as (H, W, 3) uint8 BGR, as ``cv2.imread`` returns it."""
+    """Read a PNG or JPEG file as (H, W, 3) uint8 BGR, as ``cv2.imread`` returns it."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"cannot read image: {path}")
+    if image_format(path) == "jpeg":
+        return jpeg.read_jpeg(path)
     return np.ascontiguousarray(read_png(path)[..., ::-1])
 
 

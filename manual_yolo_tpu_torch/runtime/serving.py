@@ -52,7 +52,7 @@ from manual_yolo_tpu_torch.core.serialization import load_params
 from manual_yolo_tpu_torch.game import taxonomy
 from manual_yolo_tpu_torch.game.text import VALID_CARD_RANKS, normalize_rank_text
 from manual_yolo_tpu_torch.models import yolov8
-from manual_yolo_tpu_torch.models.classifier import RANK_NAMES_13
+from manual_yolo_tpu_torch.models.classifier import load_classifier_tree
 from manual_yolo_tpu_torch.ops import nms as nms_ops
 from manual_yolo_tpu_torch.ops.letterbox import letterbox_params
 from manual_yolo_tpu_torch.runtime import native
@@ -1547,36 +1547,30 @@ class BatchStream:
 
 
 def _load_params(detector_weights: str, classifier_weights: str) -> Dict:
-    """The constructor arguments of both classes from native ``.npz``
-    checkpoints: folded parameter trees, specs and class names."""
-    if not classifier_weights.endswith(".npz"):
-        raise ValueError(
-            f"{classifier_weights}: the port reads the rank classifier from its native "
-            ".npz format (e.g. weights/rank_classifier_matched.npz), not a .pt checkpoint")
+    """The constructor arguments of both classes: folded parameter trees,
+    specs and class names, from a native ``.npz`` detector and a native
+    ``.npz`` or ultralytics ``.pt`` classifier."""
     det_params, det_meta = load_params(detector_weights)
     sp = det_meta.get("spec", {})
     det_spec = yolov8.build_spec("detect", sp.get("scale", "n"), int(sp.get("nc", 64)))
-    cls_params, cls_meta = load_params(classifier_weights)
-    cp = cls_meta.get("spec", {})
-    cls_spec = yolov8.build_spec(cp.get("variant", "classify"), cp.get("scale", "n"),
-                                 int(cp.get("nc", 13)))
     names = {int(k): v for k, v in det_meta.get("names", {}).items()} or taxonomy.CLASSES
-    rank_names = ({int(k): v for k, v in cls_meta.get("names", {}).items()}
-                  or dict(enumerate(RANK_NAMES_13)))
+    cls_params, cls_spec, rank_names = load_classifier_tree(classifier_weights)
     return dict(det_params=yolov8.fold_params(det_params, det_spec), det_spec=det_spec,
-                cls_params=yolov8.fold_params(cls_params, cls_spec), cls_spec=cls_spec,
+                cls_params=cls_params, cls_spec=cls_spec,
                 names=names, rank_names=rank_names)
 
 
 def load_streaming_engine(detector_weights: str, classifier_weights: str,
                           **kwargs) -> StreamingEngine:
-    """A StreamingEngine from native checkpoints; ``kwargs`` go to the
-    constructor (``device`` defaults to ``cuda``)."""
+    """A StreamingEngine from a native ``.npz`` detector and a native ``.npz`` or
+    ultralytics ``.pt`` classifier; ``kwargs`` go to the constructor
+    (``device`` defaults to ``cuda``)."""
     return StreamingEngine(**_load_params(detector_weights, classifier_weights), **kwargs)
 
 
 def load_batch_stream(detector_weights: str, classifier_weights: str,
                       **kwargs) -> BatchStream:
-    """A BatchStream from native checkpoints; ``kwargs`` go to the
-    constructor (``device`` defaults to ``cuda``)."""
+    """A BatchStream from a native ``.npz`` detector and a native ``.npz`` or
+    ultralytics ``.pt`` classifier; ``kwargs`` go to the constructor
+    (``device`` defaults to ``cuda``)."""
     return BatchStream(**_load_params(detector_weights, classifier_weights), **kwargs)

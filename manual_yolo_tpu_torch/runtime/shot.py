@@ -1,8 +1,9 @@
 """Single-screenshot pipeline: image file in -> flat result JSON out.
 
 Counterpart of ``manual_yolo_tpu/runtime/shot.py`` (``process_screenshot``,
-``load_fused_pipeline``, ``llm_should_escalate``). The image is read by the
-port's own PNG reader (``runtime/png.py``) instead of ``cv2.imread``. Rank
+``load_fused_pipeline``, ``llm_should_escalate``). The image, PNG or JPEG,
+is read by the port's own readers (``runtime/png.py::imread_bgr``) instead
+of ``cv2.imread``. Rank
 fields are read by the batched rank classifier inside ``FusedPipeline``;
 every OCR-class field it leaves empty (stacks, bets, pot, names, game_id, and
 ranks below the classifier's gate) is read by the OCR engine when one is
@@ -153,13 +154,14 @@ def load_fused_pipeline(
     compute_dtype: str = "bfloat16",
     device: Union[str, torch.device] = "cuda",
 ) -> FusedPipeline:
-    """Build the pipeline from native ``.npz`` weights on ``device``.
+    """Build the pipeline on ``device`` from a native ``.npz`` detector and a
+    native ``.npz`` or ultralytics ``.pt`` classifier.
 
     The detector runs in ``compute_dtype`` ("bfloat16" or "float32"; any
     other value raises ``ValueError``); the classifier always in f32."""
     det_model, names = load_detector(detector_weights, compute_dtype)
     dev = resolve_device(device)
-    clf = RankClassifier.from_npz(classifier_weights, device=dev)
+    clf = RankClassifier.load(classifier_weights, device=dev)
     return FusedPipeline(
         det_model=det_model.to(dev).eval(),
         cls_model=clf.model,

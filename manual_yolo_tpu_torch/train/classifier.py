@@ -1,7 +1,7 @@
 """Rank-classifier trainer. Counterpart of ``manual_yolo_tpu/train/classifier.py``.
 
 Fine-tunes yolov8n-cls on a folder dataset (``<root>/{train,valid}/<class>/``,
-PNG files), as the reference's ``class.py``: a train step of a forward with
+PNG or JPEG files), as the reference's ``class.py``: a train step of a forward with
 batch-statistics BN and cross-entropy, AdamW with warmup and cosine decay
 (``train/optim.py``), early stopping on validation top-1 (on the worse of
 the folder and the matched split when ``matched_npz`` is given), the best
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from manual_yolo_tpu_torch.core.device import precision_for, resolve_device
 from manual_yolo_tpu_torch.core.serialization import load_params, save_params
+from manual_yolo_tpu_torch.core.weights import load_torch_checkpoint
 from manual_yolo_tpu_torch.models import yolov8
 from manual_yolo_tpu_torch.train.data import augment_classify_batch, load_classify_folder
 from manual_yolo_tpu_torch.train.optim import adamw, set_lr, warmup_cosine
@@ -48,7 +49,7 @@ class ClsTrainConfig:
     label_smoothing: float = 0.0
     scale: str = "n"
     seed: int = 0
-    init_from: Optional[str] = None  # a .pt warm start: not ported yet
+    init_from: Optional[str] = None  # ultralytics .pt warm start
     init_from_npz: Optional[str] = None  # native checkpoint warm start
     # optional distribution-matched crops (train/matched_crops.py): co-trained
     # with the folder dataset and evaluated as a second validation axis
@@ -131,10 +132,9 @@ def train_classifier(cfg: ClsTrainConfig, log=print) -> Dict[str, float]:
 
     spec = yolov8.build_spec("classify", cfg.scale, nc)
     if cfg.init_from:
-        raise NotImplementedError(
-            "init_from (a .pt checkpoint) is not ported: the .pt import is ROADMAP "
-            "Queue 1 item 2; warm-start from a native checkpoint with init_from_npz")
-    if cfg.init_from_npz:
+        ckpt = load_torch_checkpoint(cfg.init_from)
+        params = yolov8.import_torch_state(ckpt.state, spec, fold=False)
+    elif cfg.init_from_npz:
         params, _meta = load_params(cfg.init_from_npz)
         log(f"warm-started from {cfg.init_from_npz}")
     else:

@@ -5,10 +5,10 @@ signature and draws from the ``np.random.Generator`` in the same order and
 number as the JAX package's, so one seed gives the same crops, boxes, masks
 and generator state. The pixel operations stand in for cv2's:
 
-  * ``cv2.imread`` -> ``runtime/png.py::imread_bgr``. Only PNG files are
-    read: a JPEG, or any file the PNG reader cannot take, raises
-    ``ValueError`` naming the file (the JAX package skips a file cv2 cannot
-    decode);
+  * ``cv2.imread`` -> ``runtime/png.py::imread_bgr``: PNG and JPEG files
+    (``runtime/jpeg.py``), the same bytes as cv2. Any other file (a BMP), or
+    one the readers cannot take, raises ``ValueError`` naming the file (the
+    JAX package skips a file cv2 cannot decode);
   * uint8 ``INTER_LINEAR`` resize -> the host library's ``resize_u8``, byte
     for byte; the f32 one -> ``ops/image.py::cv_resize``;
   * ``INTER_AREA`` downscale -> ``resize_area_u8``, byte for byte;
@@ -226,7 +226,7 @@ def load_classify_folder(
     root: str, size: int = 64
 ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
     """Load ``root/<class>/*`` -> (images (N,size,size,3) [0,1] RGB, labels, names).
-    Every file must be a PNG (``ValueError`` otherwise)."""
+    Every file must be a PNG or a JPEG (``ValueError`` otherwise)."""
     names = sorted(
         d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d))
     )
@@ -298,7 +298,7 @@ def load_yolo_split(
 
     ``max_side`` pre-downscales decoded images once at load (``INTER_AREA``,
     boxes scaled accordingly). Files named ``.jpg``/``.jpeg``/``.png`` are
-    read; one that is not a PNG raises ``ValueError``.
+    read; one that is not a PNG or a JPEG raises ``ValueError``.
     """
     img_dir = os.path.join(root, split, "images")
     lbl_dir = os.path.join(root, split, "labels")

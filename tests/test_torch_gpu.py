@@ -7,7 +7,10 @@ BatchStream: one launch per tick, and its f32 rank reads equal to the CPU's
 over 20 pipelined ticks, its delta codec's decoders on the card bit for bit
 the CPU's, and training: three f32 train steps of each model
 on the card against the CPU, the kernel on one eval batch of candidates
-(B=8, conf 0.001), two bf16 detector steps, and ``cli.train_cls``.
+(B=8, conf 0.001), two bf16 detector steps, and ``cli.train_cls``; the
+reference's formats: a .pt classifier's ``classify_crops`` on the card
+against the CPU, and ``build_matched_rank_dataset`` over the JPEG fixtures
+on the card against the CPU.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -500,3 +503,45 @@ def test_cli_train_cls_one_epoch_on_card(cuda_device, tmp_path, capsys):
                            "--init-from-npz", CLS]) == 0
     res = capsys.readouterr().out
     assert '"best_top1"' in res and os.path.exists(out)
+
+
+@pytest.mark.gpu
+def test_pt_classifier_classify_crops_on_card_match_cpu(cuda_device, tmp_path):
+    """A .pt written from the committed rank classifier: on the card the same
+    names as the CPU, confidences within 1e-5, logits equal to the .npz's."""
+    from manual_yolo_tpu_torch.models.classifier import RankClassifier
+    from torch_pt_cases import write_from_npz
+
+    pt = str(tmp_path / "rank.pt")
+    write_from_npz(pt, CLS, ema="model_off")
+    card = RankClassifier.from_torch_checkpoint(pt, device=cuda_device)
+    cpu = RankClassifier.from_torch_checkpoint(pt, device="cpu")
+    with np.load(MATCHED) as z:
+        x = z["valid_x"][:24]
+    rng = np.random.default_rng(0)
+    crops = [np.ascontiguousarray(c[::int(rng.integers(1, 3)), :, ::-1]) for c in x]
+    got, ref = card.classify_crops(crops), cpu.classify_crops(crops)
+    assert [n for n, _ in got] == [n for n, _ in ref]
+    np.testing.assert_allclose([c for _, c in got], [c for _, c in ref], rtol=0, atol=1e-5)
+    batch = torch.rand(4, 64, 64, 3, device=cuda_device)
+    npz = RankClassifier.from_npz(CLS, device=cuda_device)
+    assert torch.equal(card.logits(batch), npz.logits(batch))
+
+
+@pytest.mark.gpu
+def test_build_matched_on_card_matches_cpu(cuda_device, tmp_path, capsys):
+    """Matched crops re-cut from JPEG screenshots (the committed fixtures)
+    on the card: the CPU's labels and bytes."""
+    from manual_yolo_tpu_torch.train.matched_crops import build_matched_rank_dataset
+    from torch_train_cases import matched_sources
+
+    shots = [os.path.join(REPO, "tests", "torch_jpeg", f)
+             for f in ("poker_labeled_420.jpg", "frame_1200x1920.jpg")]
+    det, rank = str(tmp_path / "det"), str(tmp_path / "rank")
+    matched_sources(det, rank, shots)
+    for split, jitter in (("train", 2), ("valid", 0)):
+        got = build_matched_rank_dataset(rank, det, split, jitter=jitter, device=cuda_device)
+        ref = build_matched_rank_dataset(rank, det, split, jitter=jitter, device="cpu")
+        assert got[2] == ref[2] and len(got[1]) == 13 * (jitter + 1)
+        np.testing.assert_array_equal(got[1], ref[1])
+        np.testing.assert_array_equal(got[0], ref[0])

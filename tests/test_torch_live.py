@@ -433,13 +433,25 @@ def test_file_source_reads_png_directory_like_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["shot.jpg", "clip.mp4", "shot.bmp"])
 def test_file_source_refuses_what_it_cannot_read(tmp_path, name):
-    """A JPEG, BMP or video path raises, naming the file and the PNG reader;
-    so does a directory holding a JPEG or BMP (a directory's videos are not
-    frames in either package)."""
+    """A JPEG path, and a directory holding it beside a PNG, read as cv2
+    reads them (the JAX package's frames). A BMP or video path raises,
+    naming the file and the formats that are read; so does a directory
+    holding a BMP (a directory's videos are not frames in either package)."""
+    img = cv2.imread(IMAGE)[:60, :90]
     cv2.imwrite(str(tmp_path / "a.png"), np.zeros((4, 4, 3), np.uint8))
-    (tmp_path / name).write_bytes(b"\xff\xd8 not read")
+    if name.endswith(".mp4"):
+        (tmp_path / name).write_bytes(b"\x00\x00\x00\x18ftypmp42")
+    else:
+        cv2.imwrite(str(tmp_path / name), img)
     paths = [tmp_path / name] + ([] if name.endswith(".mp4") else [tmp_path])
     for path in paths:
+        if name.endswith(".jpg"):
+            got = list(pt_capture.file_source(str(path)))
+            ref = list(jax_capture.file_source(str(path)))
+            assert len(got) == len(ref) == (1 if path.is_file() else 2)
+            for g, r in zip(got, ref):
+                np.testing.assert_array_equal(g, r)
+            continue
         with pytest.raises(ValueError, match=f"{name}.*PNG"):
             next(pt_capture.file_source(str(path)))
 

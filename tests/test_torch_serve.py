@@ -262,10 +262,24 @@ def test_serve_cli_fleet_end_to_end(tmp_path, capsys):
         assert sorted(got[ti][1]) == sorted(ref[ti][1])
 
 
-def test_serve_cli_rejects_a_pt_classifier(tmp_path):
+def test_serve_cli_rejects_a_pt_classifier(tmp_path, capsys):
+    """cli.serve takes an ultralytics .pt classifier, as the JAX CLI does:
+    the same per-table rows as with the .npz it was written from. A .pt that
+    is missing raises."""
     from manual_yolo_tpu_torch.cli import serve as pt_serve
+    from torch_pt_cases import write_from_npz
 
-    with pytest.raises(ValueError, match="npz"):
+    pt = str(tmp_path / "rank.pt")
+    write_from_npz(pt, CLS)
+    rows = {}
+    for name, clf in (("npz", CLS), ("pt", pt)):
+        out = str(tmp_path / name)
+        assert pt_serve.main(SERVE_ARGS + ["--out", out, "--device", "cpu", "--dtype", "float32",
+                                           "--classifier", clf]) == 0
+        capsys.readouterr()
+        rows[name] = {ti: [r["detections"] for r in t[0]] for ti, t in _serve_outputs(out).items()}
+    assert rows["pt"] == rows["npz"] and any(rows["pt"].values())
+    with pytest.raises(FileNotFoundError):
         pt_serve.main(["--tables", "1", "--ticks", "1", "--device", "cpu",
                        "--classifier", "weights/rank_classifier.pt", "--out", str(tmp_path)])
 

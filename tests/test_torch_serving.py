@@ -515,9 +515,24 @@ def test_streaming_engine_texts_match_jax_on_the_same_detections(streaming_run):
     assert all(sum(bool(d["ocr_text"]) for d in dets) >= 1 for dets in got)
 
 
-def test_loaders_reject_a_pt_classifier_and_need_a_card():
-    with pytest.raises(ValueError, match="npz"):
-        pt_serving.load_batch_stream(DET_N, "weights/rank_classifier.pt", device="cpu")
+def test_loaders_reject_a_pt_classifier_and_need_a_card(tmp_path):
+    """Both loaders take an ultralytics .pt classifier, as the JAX package's
+    do: its parameters, spec and names equal the .npz's it was written from;
+    without a card they need device='cpu'."""
+    from torch_pt_cases import write_from_npz
+
+    pt = str(tmp_path / "rank.pt")
+    write_from_npz(pt, CLS, ema="model_off")
+    got = pt_serving._load_params(DET_N, pt)
+    ref = pt_serving._load_params(DET_N, CLS)
+    assert got["cls_spec"] == ref["cls_spec"] and got["rank_names"] == ref["rank_names"]
+    g = jax.tree_util.tree_leaves(got["cls_params"])
+    r = jax.tree_util.tree_leaves(ref["cls_params"])
+    assert len(g) == len(r) == 54
+    for a, b in zip(g, r):
+        np.testing.assert_array_equal(a, b)
+    stream = pt_serving.load_batch_stream(DET_N, pt, device="cpu")
+    stream.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pt_serving.load_streaming_engine(DET_N, CLS)

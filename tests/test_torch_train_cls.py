@@ -24,9 +24,12 @@ from manual_yolo_tpu_torch.core.serialization import load_params  # noqa: E402
 from manual_yolo_tpu_torch.models import yolov8 as py  # noqa: E402
 from manual_yolo_tpu_torch.models.classifier import RankClassifier  # noqa: E402
 from manual_yolo_tpu_torch.train import classifier as pcls  # noqa: E402
-from manual_yolo_tpu_torch.train.matched_crops import load_matched_dataset, parse_crop_name  # noqa: E402
+from manual_yolo_tpu_torch.train.matched_crops import (  # noqa: E402
+    build_matched_rank_dataset, load_matched_dataset, parse_crop_name,
+)
 from manual_yolo_tpu_torch.train.optim import adamw, warmup_cosine  # noqa: E402
-from torch_train_cases import MATCHED, REPO, rank_folder_dataset  # noqa: E402
+from torch_pt_cases import write_from_npz  # noqa: E402
+from torch_train_cases import MATCHED, REPO, matched_sources, rank_folder_dataset  # noqa: E402
 
 CLS_WEIGHTS = os.path.join(REPO, "weights", "rank_classifier_matched.npz")
 LR, WD = 1e-3, 5e-4
@@ -149,7 +152,10 @@ def test_cli_train_cls_end_to_end_on_cpu(tmp_path, capsys):
     """``cli.train_cls --device cpu`` on a 13-class PNG folder dataset, warm
     started: the JAX CLI's JSON keys, the checkpoint's meta keys, the
     artifacts beside it; the checkpoint loads in ``RankClassifier``; a .pt
-    warm start and ``--build-matched`` raise ``NotImplementedError``."""
+    warm start (``--init-from``, the same weights as an ultralytics .pt)
+    trains to the same checkpoint, bit for bit; ``--build-matched`` re-crops
+    JPEG screenshots into the matched npz, as the library call does, and
+    trains on it."""
     from manual_yolo_tpu_torch.cli import train_cls
 
     root, names = rank_folder_dataset(str(tmp_path / "ds"), per_class=(3, 1))
@@ -173,10 +179,34 @@ def test_cli_train_cls_end_to_end_on_cpu(tmp_path, capsys):
     assert clf.logits(torch.zeros(2, 64, 64, 3)).shape == (2, 13)
     jparams, _ = jax_load_params(out)
     assert len(jax.tree_util.tree_leaves(jparams)) == len(jax.tree_util.tree_leaves(params))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        train_cls.main(argv + ["--init-from", "x.pt"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cls.main(argv + ["--build-matched", root])
+    pt = str(tmp_path / "rank.pt")
+    write_from_npz(pt, CLS_WEIGHTS, ema="model_off")
+    out_pt = str(tmp_path / "run_pt" / "best.npz")
+    argv_pt = ["--data", root, "--out", out_pt, "--epochs", "2", "--batch", "8", "--device", "cpu"]
+    assert train_cls.main(argv_pt + ["--init-from", pt]) == 0
+    capsys.readouterr()
+    params_pt, meta_pt = load_params(out_pt)
+    assert meta_pt == meta
+    for (_, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(params_pt)[0],
+                              jax.tree_util.tree_flatten_with_path(params)[0]):
+        np.testing.assert_array_equal(a, b)
+
+    shots = [os.path.join(REPO, "tests", "torch_jpeg", f)
+             for f in ("poker_labeled_420.jpg", "poker_labeled_progressive.jpg")]
+    det_root, rank_root = str(tmp_path / "det"), str(tmp_path / "rank")
+    matched_sources(det_root, rank_root, shots)
+    npz = str(tmp_path / "matched.npz")
+    argv_m = ["--data", rank_root, "--out", str(tmp_path / "run_m" / "best.npz"), "--epochs", "1",
+              "--batch", "8", "--device", "cpu", "--build-matched", det_root, "--matched-npz", npz]
+    assert train_cls.main(argv_m) == 0
+    printed = capsys.readouterr().out
+    assert f"built {npz}: train (39, 64, 64, 3), valid (13, 64, 64, 3)" in printed
+    assert "co-training with 39 matched crops (+13 matched valid)" in printed
+    built, built_names = load_matched_dataset(npz)
+    ref = build_matched_rank_dataset(rank_root, det_root, "train", jitter=2, device="cpu")
+    assert built_names == ref[2] == names
+    np.testing.assert_array_equal(built["train"][1], ref[1])
+    np.testing.assert_array_equal(built["train"][0], ref[0].astype(np.float32) / 255.0)
 
 
 def test_matched_dataset_matches_jax(tmp_path):

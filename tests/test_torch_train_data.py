@@ -65,9 +65,18 @@ def test_load_classify_folder_matches_jax(tmp_path):
 
 
 def test_jpeg_raises_naming_the_file(tmp_path):
+    """A JPEG folder reads as the JAX package's cv2 reads it; a JPEG that
+    is cut short raises naming the file (cv2 would return a partial image)."""
     os.makedirs(tmp_path / "a")
-    cv2.imwrite(str(tmp_path / "a" / "x.jpg"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(ValueError, match="x.jpg.*PNG"):
+    img = np.random.default_rng(2).integers(0, 256, (40, 56, 3), np.uint8)
+    cv2.imwrite(str(tmp_path / "a" / "x.jpg"), img)
+    got = pdata.load_classify_folder(str(tmp_path))
+    ref = jdata.load_classify_folder(str(tmp_path))
+    np.testing.assert_array_equal(got[0], ref[0])
+    assert got[2] == ref[2] == ["a"]
+    data = (tmp_path / "a" / "x.jpg").read_bytes()
+    (tmp_path / "a" / "x.jpg").write_bytes(data[:len(data) // 2])
+    with pytest.raises(ValueError, match="x.jpg.*ends early"):
         pdata.load_classify_folder(str(tmp_path))
 
 

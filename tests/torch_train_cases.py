@@ -1,13 +1,15 @@
 """Inputs shared by the training tests (tests/test_torch_train_*.py and the
 card tests in tests/test_torch_gpu.py): small PNG datasets written with the
-port's ``write_png`` and a seeded detection batch. No JAX here: the card's
-host has none."""
+port's ``write_png``, a seeded detection batch, and the sources of a matched
+rank dataset (JPEG screenshots, labels and named rank crops). No JAX and no
+cv2 here: the card's host has neither (``chip_smoke.py`` uses them too)."""
 
 import os
+import shutil
 
 import numpy as np
 
-from manual_yolo_tpu_torch.runtime.png import write_png
+from manual_yolo_tpu_torch.runtime.png import imread_bgr, write_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MATCHED = os.path.join(REPO, "data", "rank_matched.npz")
@@ -45,6 +47,38 @@ def rank_folder_dataset(root, per_class=(3, 1)):
             for j, idx in enumerate(np.flatnonzero(y == c)[:k]):
                 write_png(os.path.join(root, split, name, f"{j}.png"), x[idx][..., ::-1])
     return root, names
+
+
+def matched_sources(det_root, rank_root, screenshots, names=None):
+    """What ``build_matched_rank_dataset`` and ``cli.train_cls
+    --build-matched`` read: ``screenshots`` (JPEG files) copied into a YOLO
+    train split as ``shot{i}.jpg``, each with 13 label rows (row r of class
+    r, boxes on a 5x3 grid), and a rank folder dataset whose crops (PNG, cut
+    at the label boxes) are named ``shot{i}_flop1_rank_{r}.png``: the first
+    screenshot's in ``train/``, the others' in ``valid/``. Returns the class
+    names (the matched dataset's by default)."""
+    if names is None:
+        names = [str(v) for v in np.load(MATCHED)["names"]]
+    os.makedirs(os.path.join(det_root, "train", "images"), exist_ok=True)
+    os.makedirs(os.path.join(det_root, "train", "labels"), exist_ok=True)
+    for i, src in enumerate(screenshots):
+        stem = f"shot{i}"
+        shutil.copyfile(src, os.path.join(det_root, "train", "images", stem + ".jpg"))
+        img = imread_bgr(src)
+        h, w = img.shape[:2]
+        rows = []
+        for r in range(len(names)):
+            cx, cy = (r % 5 + 0.5) * w / 5, (r // 5 + 0.5) * h / 3
+            bw, bh = 26 + 3 * (r % 4), 38 + 2 * (r % 3)
+            rows.append(f"{r} {cx / w:.6f} {cy / h:.6f} {bw / w:.6f} {bh / h:.6f}")
+            split = "train" if i == 0 else "valid"
+            d = os.path.join(rank_root, split, names[r])
+            os.makedirs(d, exist_ok=True)
+            crop = img[int(cy - bh / 2):int(cy + bh / 2), int(cx - bw / 2):int(cx + bw / 2)]
+            write_png(os.path.join(d, f"{stem}_flop1_rank_{r}.png"), np.ascontiguousarray(crop))
+        with open(os.path.join(det_root, "train", "labels", stem + ".txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return names
 
 
 def detect_batch(b=2, imgsz=64, m=6, nc=4, seed=0):
