@@ -1,7 +1,9 @@
 """Run the PyTorch port's paths on one CUDA card, and check them: the
 single-screenshot path, the live loop, the hand session, multi-table
-serving, serving's delta codec, training, and the reference's own file
-formats (JPEG screenshots, an ultralytics .pt classifier).
+serving, serving's delta codec, training, the reference's own file
+formats (JPEG screenshots, an ultralytics .pt classifier), and what the
+screenshot and live CLIs write (the annotated image, JPEG files, the
+vision-LLM request, unlabelled rank crops).
 
     python3 chip_smoke.py
 
@@ -129,7 +131,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      build_matched_rank_dataset on a YOLO set of the JPEG fixtures (labels
      and rank crop names written here) equal on the card and the CPU
      (``matched_crops``);
- 15. time the kernel's device time from a torch.profiler trace at
+ 15. what the CLIs write: with the launch counter at 0, cli.shot on the
+     example with its default --output-image in a scratch directory: one
+     launch, poker_labeled.png read back equal to runtime/draw.py's
+     annotate() of the run's detections and to the input outside the drawn
+     boxes and labels; again with --output-image x.jpg (one launch, the
+     file encode_jpeg of the annotation); the wall time the image adds to
+     the screenshot with OCR (``annotated_shot``); encode_jpeg of the
+     example and the seeded frame at 95 and 85 and a gray crop at 50 to the
+     SHA-256 of cv2.imencode's bytes in tests/torch_jpeg/cv2_encode.json,
+     each timed against png.write_png (``jpeg_encode``); a screenshot with
+     use_llm_fallback=True, no OCR and urllib.request.urlopen stubbed (no
+     network): one request, its image encode_jpeg of the collage at 85, the
+     stub's answer validated into each escalated field, one launch
+     (``llm_fallback``); LiveLoop(save_screenshots=True,
+     screenshot_interval=0) over 4 frames: one launch and one .jpg a frame,
+     each encode_jpeg of its frame and read back by the port's reader
+     (``live_screenshots``); cli.unlabel on the training phase's YOLO
+     dataset: a crop per rank label, each encode_jpeg of its slice
+     (``unlabel``);
+ 16. time the kernel's device time from a torch.profiler trace at
      poker_labeled, full_chain, batch4, batch16, tiles12, the example's 6
      tiles (tiles6_poker_labeled), serve16, eval8 and eval8_det_n (each shape's launches
      inside a record_function range; a range without all of its kernel
@@ -140,7 +161,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      (device busy and idle share, the OCR pass's share, recognizer calls per
      kind, the host time of the beam and rescore); print them and a JSON
      line listing every kernel with its bound and its launches on each path;
- 16. print the device line last.
+ 17. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
 result is printed.
@@ -174,12 +195,13 @@ from manual_yolo_tpu_torch.ops import nms_kernel
 from manual_yolo_tpu_torch.config import AppConfig
 from manual_yolo_tpu_torch.ops.letterbox import letterbox, letterbox_batch
 from manual_yolo_tpu_torch.parallel.inference import tiled_frames
-from manual_yolo_tpu_torch.runtime import native, png
+from manual_yolo_tpu_torch.runtime import draw, jpeg, llm_fallback, native, png
+from manual_yolo_tpu_torch.runtime import shot as shot_mod
 from manual_yolo_tpu_torch.runtime.embedder import default_embedder
 from manual_yolo_tpu_torch.runtime.engine import DetectorEngine
 from manual_yolo_tpu_torch.runtime.hands import HandSessionPipeline
 from manual_yolo_tpu_torch.runtime.live import LiveLoop
-from manual_yolo_tpu_torch.runtime.ocr import field_kind, default_ocr_engine
+from manual_yolo_tpu_torch.runtime.ocr import OCREngine, field_kind, default_ocr_engine
 from manual_yolo_tpu_torch.runtime.fieldocr import FieldOCRMemo
 from manual_yolo_tpu_torch.runtime.serving import (
     letterbox_u8_into, load_batch_stream, load_streaming_engine,
@@ -1962,7 +1984,7 @@ def jpeg_shot(dev, tmp: str, pt: str, launches_by_path: dict) -> None:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = shot_cli.main(["--image", image, "--classifier", clf, "--output-json", out_json,
-                                "--device", dev.type])
+                                "--output-image", "", "--device", dev.type])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         if rc != 0:
@@ -2008,6 +2030,303 @@ def matched_phase(dev, tmp: str) -> None:
         out[split] = {"crops": len(y), "classes": len(set(y.tolist())), "equal_cpu": True,
                       "card_s": runs["card_s"], "cpu_s": runs["cpu_s"]}
     print(json.dumps({"matched_crops": out}))
+
+
+SHOT_REPS = 5
+LIVE_SHOT_FRAMES = 4
+# the stubbed LLM's raw answer by field kind; the shot validates it per kind
+LLM_ANSWER = {"card": "a", "numeric": "1.2k", "name": "bob_99", "game_id": "Game ID : 987654321"}
+
+
+def drawn_mask(shape, dets) -> np.ndarray:
+    """Where annotate() may draw: each box's 2-px frame and its label's
+    text_size box above it."""
+    mask = np.zeros(shape[:2], bool)
+    for d in dets:
+        x1, y1, x2, y2 = d["bbox"]
+        mask[max(0, min(y1, y2) - 1):max(y1, y2) + 2, max(0, min(x1, x2) - 1):max(x1, x2) + 2] = True
+        (w, h), base = draw.text_size(f"{d['class_name']}:{d.get('ocr_text') or ''}", 0.5)
+        oy = max(0, y1 - 5)
+        mask[max(0, oy - h):max(0, oy + base + 1), max(0, x1):max(0, x1 + w)] = True
+    return mask
+
+
+@contextlib.contextmanager
+def recording_pipelines():
+    """Every FusedPipeline.process_frame call in the block appends its
+    detections (the same dicts) to the yielded list."""
+    from manual_yolo_tpu_torch.runtime.pipeline import FusedPipeline
+
+    seen, inner = [], FusedPipeline.process_frame
+
+    def record(self, frame):
+        dets = inner(self, frame)
+        seen.append(dets)
+        return dets
+
+    FusedPipeline.process_frame = record
+    try:
+        yield seen
+    finally:
+        FusedPipeline.process_frame = inner
+
+
+def annotated_shot(dev, tmp: str, gpu, gpu_ocr, launches_by_path: dict) -> None:
+    """cli.shot on the example with its default --output-image, run in a
+    scratch directory (counted: one launch): poker_labeled.png, read back
+    with the port's reader, equals annotate() of the run's detections and
+    the input frame outside the drawn boxes and labels; again with
+    --output-image x.jpg: the file is encode_jpeg of the same annotation.
+    The wall time the image adds to process_screenshot with OCR, and
+    annotate() and the PNG write alone."""
+    from manual_yolo_tpu_torch.cli import shot as shot_cli
+
+    frame = imread_bgr(IMAGE)
+    out, cwd = {}, os.getcwd()
+    for tag, flags in (("default_png", []), ("jpg", ["--output-image", "x.jpg"])):
+        run_dir = os.path.join(tmp, f"annotated_{tag}")
+        os.makedirs(run_dir)
+        os.chdir(run_dir)
+        try:
+            with recording_pipelines() as seen, contextlib.redirect_stdout(io.StringIO()):
+                nms_kernel.nms_keep.launches = 0
+                t0 = time.perf_counter()
+                rc = shot_cli.main(["--image", IMAGE, "--device", dev.type, *flags])
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            launches = nms_kernel.nms_keep.launches
+        finally:
+            os.chdir(cwd)
+        if rc != 0 or launches != 1 or len(seen) != 1:
+            fail(f"cli.shot {tag}: rc {rc}, {launches} nms_keep launches, {len(seen)} frames")
+        dets = seen[0]
+        want = shot_mod.annotate(frame, dets)
+        if tag == "default_png":
+            got = imread_bgr(os.path.join(run_dir, "poker_labeled.png"))
+            if not np.array_equal(got, want):
+                fail(f"poker_labeled.png differs from annotate() in {int((got != want).any(-1).sum())} px")
+            outside = ~drawn_mask(frame.shape, dets)
+            if not np.array_equal(got[outside], frame[outside]):
+                fail("poker_labeled.png differs from the input outside the drawn boxes and labels")
+            changed = int((got != frame).any(-1).sum())
+        else:
+            with open(os.path.join(run_dir, "x.jpg"), "rb") as f:
+                if f.read() != jpeg.encode_jpeg(want):
+                    fail("cli.shot --output-image x.jpg is not encode_jpeg of the annotation")
+        if not os.path.exists(os.path.join(run_dir, "poker_result.json")):
+            fail(f"cli.shot {tag} wrote no poker_result.json")
+        launches_by_path[f"annotated_shot_{tag}"] = launches
+        out[tag] = {"nms_keep_launches": launches, "cli_wall_s": wall_s, "detections": len(dets)}
+    # the added wall time: with and without the image, in turns
+    with_ms, without_ms = [], []
+    png_out = os.path.join(tmp, "timed_labeled.png")
+    for i in range(2 * SHOT_REPS + 2):
+        image = png_out if i % 2 == 0 else None
+        t0 = time.perf_counter()
+        process_screenshot(gpu, IMAGE, os.path.join(tmp, "timed.json"), output_image=image,
+                           ocr=gpu_ocr, use_llm_fallback=False)
+        if i >= 2:
+            (with_ms if image else without_ms).append((time.perf_counter() - t0) * 1e3)
+    dets = gpu.process_frame(frame)
+    annotated = shot_mod.annotate(frame, dets)
+    print(json.dumps({"annotated_shot": dict(
+        out, pixels_changed=changed, equal_annotate=True, outside_equal_input=True,
+        shot_with_image_ms=statistics.median(with_ms),
+        shot_without_image_ms=statistics.median(without_ms),
+        added_ms=statistics.median(with_ms) - statistics.median(without_ms),
+        annotate_ms=host_ms(lambda: shot_mod.annotate(frame, dets)),
+        png_write_ms=host_ms(lambda: png.write_png(png_out, annotated)),
+        jpeg_write_ms=host_ms(lambda: jpeg.write_jpeg(os.path.join(tmp, "t.jpg"), annotated)))}))
+
+
+def jpeg_encode_phase(tmp: str) -> dict:
+    """encode_jpeg of the committed cases (the example and the seeded
+    1200x1920 frame at 95 and 85, a gray crop at 50) gives the SHA-256 of
+    cv2.imencode's bytes in tests/torch_jpeg/cv2_encode.json (this host has
+    no cv2); encode ms, median of 5, against png.write_png of the same array."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_encode_cases as enc
+
+    committed = enc.load_hashes()["cases"]
+    src = enc.sources(imread_bgr)
+    out = {}
+    for name, (source, quality) in enc.CASES.items():
+        img = src[source]
+        data = jpeg.encode_jpeg(img, quality)
+        digest = hashlib.sha256(data).hexdigest()
+        if digest != committed[name]["sha256"] or len(data) != committed[name]["bytes"]:
+            fail(f"encode_jpeg {name}: {len(data)} bytes sha256 {digest}, cv2.imencode writes "
+                 f"{committed[name]['bytes']} {committed[name]['sha256']}")
+        as_png = os.path.join(tmp, name + ".png")
+        out[name] = {"shape": list(img.shape), "quality": quality, "bytes": len(data),
+                     "equal_cv2": True,
+                     "encode_ms": host_ms(lambda: jpeg.encode_jpeg(img, quality)),
+                     "png_write_ms": host_ms(lambda: png.write_png(as_png, img)),
+                     "png_bytes": os.path.getsize(as_png)}
+    print(json.dumps({"jpeg_encode": out}))
+    return out
+
+
+class FakeResponse(io.BytesIO):
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def llm_fallback_phase(dev, tmp: str, gpu, launches_by_path: dict) -> None:
+    """A screenshot on the card with use_llm_fallback=True and no OCR (so
+    the important fields are empty), with urllib.request.urlopen stubbed (no
+    network) and a key set (counted: one launch): one request goes out; its
+    image is encode_jpeg of the collage at 85; the stub's answer, validated
+    per kind, fills each escalated field of the result JSON."""
+    import base64
+    import urllib.request
+
+    sent, collages, asked = [], [], []
+    inner_collage, inner_urlopen = llm_fallback.build_collage, urllib.request.urlopen
+    old_key = os.environ.get("OPENAI_API_KEY")
+    answer = {k: LLM_ANSWER[field_kind(k)] for k in llm_fallback.IMPORTANT_KEYS
+              if field_kind(k) in LLM_ANSWER}
+
+    def stub_urlopen(req, timeout=None):
+        sent.append(req)
+        body = {"choices": [{"message": {"content": json.dumps(answer)}}]}
+        return FakeResponse(json.dumps(body).encode())
+
+    def collage(crops):
+        asked.extend(k for k, _ in crops)
+        collages.append(inner_collage(crops))
+        return collages[-1]
+
+    llm_fallback.build_collage = collage
+    urllib.request.urlopen = stub_urlopen
+    os.environ["OPENAI_API_KEY"] = "sk-chip-smoke"
+    try:
+        with recording_pipelines() as seen:
+            nms_kernel.nms_keep.launches = 0
+            t0 = time.perf_counter()
+            result = process_screenshot(gpu, IMAGE, os.path.join(tmp, "llm.json"),
+                                        output_image=None, use_llm_fallback=True)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = nms_kernel.nms_keep.launches
+    finally:
+        llm_fallback.build_collage, urllib.request.urlopen = inner_collage, inner_urlopen
+        if old_key is None:
+            os.environ.pop("OPENAI_API_KEY", None)
+        else:
+            os.environ["OPENAI_API_KEY"] = old_key
+    if len(sent) != 1 or len(collages) != 1 or launches != 1 or len(seen) != 1:
+        fail(f"the LLM shot sent {len(sent)} requests of {len(collages)} collages in "
+             f"{launches} launches over {len(seen)} frames, expected 1 of each")
+    url = json.loads(sent[0].data)["messages"][1]["content"][1]["image_url"]["url"]
+    if base64.b64decode(url.split(",", 1)[1]) != jpeg.encode_jpeg(collages[0], 85):
+        fail("the request's image is not encode_jpeg of the collage at 85")
+    filled = {}
+    for d in (d for d in seen[0] if d["class_name"] in asked):
+        name = d["class_name"]
+        want = OCREngine._validate(field_kind(name), name.lower(), answer[name])
+        if d["ocr_text"] != want:
+            fail(f"{name}: the LLM filled {d['ocr_text']!r}, expected {want!r}")
+        where = json_field(name)
+        if where is not None:
+            node = result
+            for k in where:
+                node = node[k]
+            if node != want:
+                fail(f"{name}: the result JSON holds {node!r} at {where}, expected {want!r}")
+            filled[name] = want
+    if len(filled) < 5:
+        fail(f"the LLM shot filled only {filled}")
+    launches_by_path["llm_fallback"] = launches
+    print(json.dumps({"llm_fallback": {"requests": 1, "escalated": len(asked),
+                                       "collage_shape": list(collages[0].shape),
+                                       "request_bytes": len(sent[0].data),
+                                       "image_equal_encode_jpeg": True, "filled": filled,
+                                       "nms_keep_launches": launches, "wall_s": wall_s}}))
+
+
+def live_screenshots(dev, tmp: str, gpu_live, gpu_ocr, frames, launches_by_path: dict) -> None:
+    """LiveLoop(save_screenshots=True, screenshot_interval=0) over 4 frames
+    as cli/detect.py builds it (counted: one launch a frame): 4 .jpg files,
+    each encode_jpeg of its frame and each read back by the port's reader;
+    the step with the screenshot against live_ms's."""
+    out_dir = os.path.join(tmp, "live_shots")
+    loop = LiveLoop(pipeline=gpu_live, output_dir=out_dir, ocr=gpu_ocr, game_update_interval=0.5,
+                    screenshot_interval=0.0, save_screenshots=True)
+    nms_kernel.nms_keep.launches = 0
+    ms = []
+    try:
+        for frame in frames:
+            t0 = time.perf_counter()
+            loop.step(frame)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        loop.close()
+    torch.cuda.synchronize()
+    launches = nms_kernel.nms_keep.launches
+    shots = sorted((f for f in os.listdir(out_dir) if f.endswith(".jpg")),
+                   key=lambda f: int(f.split("_")[2]))
+    if launches != len(frames) or len(shots) != len(frames) or loop.errors:
+        fail(f"the live loop wrote {len(shots)} screenshots over {len(frames)} frames in "
+             f"{launches} launches, {loop.errors} caught errors")
+    for name, frame in zip(shots, frames):
+        path = os.path.join(out_dir, name)
+        with open(path, "rb") as f:
+            if f.read() != jpeg.encode_jpeg(frame):
+                fail(f"{name} is not encode_jpeg of its frame")
+        back = imread_bgr(path)
+        if back.shape != frame.shape:
+            fail(f"{name} reads back as {back.shape}")
+    launches_by_path["live_screenshots"] = launches
+    print(json.dumps({"live_screenshots": {
+        "frames": len(frames), "files": shots, "nms_keep_launches": launches,
+        "step_ms": ms, "bytes": [os.path.getsize(os.path.join(out_dir, f)) for f in shots],
+        "encode_ms": host_ms(lambda: jpeg.encode_jpeg(frames[0]))}}))
+
+
+def unlabel_phase(root: str, tmp: str) -> None:
+    """cli.unlabel on the YOLO dataset of the training phase: one crop per
+    rank label whose box holds pixels, each the encode_jpeg of its frame
+    slice (the reference's arithmetic)."""
+    from manual_yolo_tpu_torch.cli import unlabel as unlabel_cli
+    from manual_yolo_tpu_torch.train.data import load_yolo_names
+
+    out_dir = os.path.join(tmp, "unlabel")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = unlabel_cli.main(["--data", root, "--split", "train", "--out", out_dir])
+    wall_s = time.perf_counter() - t0
+    names = load_yolo_names(root)
+    want = {}
+    img_dir, lbl_dir = os.path.join(root, "train", "images"), os.path.join(root, "train", "labels")
+    for label_file in sorted(os.listdir(lbl_dir)):
+        stem = label_file[:-4]
+        frame = imread_bgr(os.path.join(img_dir, stem + ".png"))
+        h, w = frame.shape[:2]
+        with open(os.path.join(lbl_dir, label_file)) as f:
+            for idx, line in enumerate(f.read().splitlines()):
+                parts = line.split()
+                cls = int(float(parts[0]))
+                if not names[cls].endswith("_rank"):
+                    continue
+                xc, yc, bw, bh = (float(v) for v in parts[1:5])
+                x1, y1 = int((xc - bw / 2) * w), int((yc - bh / 2) * h)
+                x2, y2 = int((xc + bw / 2) * w), int((yc + bh / 2) * h)
+                crop = frame[max(0, y1):y2, max(0, x1):x2]
+                if crop.size:
+                    want[f"{stem}_{names[cls]}_{idx}.jpg"] = crop
+    got = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    if rc != 0 or got != sorted(want) or len(got) < 10:
+        fail(f"cli.unlabel returned {rc} and wrote {len(got)} crops, expected {len(want)}")
+    for name, crop in want.items():
+        with open(os.path.join(out_dir, name), "rb") as f:
+            if f.read() != jpeg.encode_jpeg(crop):
+                fail(f"cli.unlabel's {name} is not encode_jpeg of its frame slice")
+    print(json.dumps({"unlabel": {"crops": len(got), "rank_labels": len(want),
+                                  "equal_encode_jpeg": True, "wall_s": wall_s}}))
 
 
 def main() -> int:
@@ -2093,7 +2412,8 @@ def main() -> int:
     frame_rand = np.random.default_rng(0).integers(0, 256, (1200, 1920, 3), dtype=np.uint8)
     gpu_json = os.path.join(tmp, "gpu.json")
     nms_kernel.nms_keep.launches = 0
-    res_gpu = process_screenshot(gpu, IMAGE, gpu_json, ocr=gpu_ocr)
+    res_gpu = process_screenshot(gpu, IMAGE, gpu_json, output_image=None, ocr=gpu_ocr,
+                                 use_llm_fallback=False)
     dets_gpu_rand = gpu.process_frame(frame_rand)
     torch.cuda.synchronize()
     launches = nms_kernel.nms_keep.launches
@@ -2102,7 +2422,8 @@ def main() -> int:
     # 7. the same on the CPU in f32. A bf16 box a pixel off gives OCR another
     # crop, so the fields of moved boxes are listed, not compared; the card
     # in f32 (the same boxes) must give the CPU's result exactly
-    res_cpu = process_screenshot(cpu, IMAGE, os.path.join(tmp, "cpu.json"), ocr=cpu_ocr)
+    res_cpu = process_screenshot(cpu, IMAGE, os.path.join(tmp, "cpu.json"), output_image=None,
+                                 ocr=cpu_ocr, use_llm_fallback=False)
     with open(gpu_json) as f:
         if json.load(f) != res_gpu:
             fail("poker_result.json on disk differs from the returned result")
@@ -2115,7 +2436,8 @@ def main() -> int:
     gpu_f32 = load_fused_pipeline(DETECTOR, CLASSIFIER, imgsz=IMGSZ, conf=CONF, iou=IOU,
                                   compute_dtype="float32", device=dev)
     compare_results(process_screenshot(gpu_f32, IMAGE, os.path.join(tmp, "f32.json"),
-                                       ocr=gpu_ocr), res_cpu)
+                                       output_image=None, ocr=gpu_ocr, use_llm_fallback=False),
+                    res_cpu)
     if gpu_ocr.errors or cpu_ocr.errors:
         fail(f"OCR caught {gpu_ocr.errors} errors on the card, {cpu_ocr.errors} on the CPU")
     print(json.dumps({"shot_vs_cpu": {"bf16_moved_box_fields": moved,
@@ -2256,7 +2578,19 @@ def main() -> int:
     jpeg_shot(dev, tmp, pt, launches_by_path)
     matched_phase(dev, tmp)
 
-    # 15. timings: the kernel at nine shapes, the rest at the main path's
+    # 15. what the screenshot and live CLIs write: the annotated image
+    # (counted), the JPEG encoder, the vision-LLM fallback (counted, stubbed
+    # request), the live loop's screenshots (counted) and cli.unlabel
+    annotated_shot(dev, tmp, gpu, gpu_ocr, launches_by_path)
+    jpeg_encode_phase(tmp)
+    llm_fallback_phase(dev, tmp, gpu, launches_by_path)
+    live_screenshots(dev, tmp, gpu_live, gpu_ocr, shifted_frames(frame_img, LIVE_SHOT_FRAMES),
+                     launches_by_path)
+    unlabel_phase(det_root, tmp)
+    if gpu_ocr.errors:
+        fail(f"OCR caught {gpu_ocr.errors} errors in the writers' phases")
+
+    # 16. timings: the kernel at nine shapes, the rest at the main path's
     cases["tiles12"] = tiles12
     cases["tiles6_poker_labeled"] = (ecand.nms_boxes.contiguous(), ecand.valid.contiguous())
     cases["serve16"] = (b16, v16)
@@ -2302,12 +2636,14 @@ def main() -> int:
     shot_ms = []
     for i in range(13):
         t0 = time.perf_counter()
-        process_screenshot(gpu, IMAGE, gpu_json, ocr=gpu_ocr)
+        process_screenshot(gpu, IMAGE, gpu_json, output_image=None, ocr=gpu_ocr,
+                           use_llm_fallback=False)
         if i >= 3:
             shot_ms.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps({"shot_ms": {"median": statistics.median(shot_ms), "min": min(shot_ms),
                                   "ocr": True, "reps": len(shot_ms)}}))
-    shot_profile(lambda: process_screenshot(gpu, IMAGE, gpu_json, ocr=TimedOCR(gpu_ocr)))
+    shot_profile(lambda: process_screenshot(gpu, IMAGE, gpu_json, output_image=None,
+                                            ocr=TimedOCR(gpu_ocr), use_llm_fallback=False))
     if gpu_ocr.errors:
         fail(f"OCR caught {gpu_ocr.errors} errors on the card while timed")
     tmp_dir.cleanup()
@@ -2333,7 +2669,7 @@ def main() -> int:
         "library_ms": None,
     }]}))
 
-    # 16. the device line
+    # 17. the device line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

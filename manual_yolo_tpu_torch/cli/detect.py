@@ -9,8 +9,10 @@ Defaults come from :class:`manual_yolo_tpu_torch.config.AppConfig`;
 ``--config`` loads a JSON override file and flags override that. The device
 defaults to ``cuda``; without a card the command fails unless ``--device
 cpu`` is given. Sources are the screen (needs ``mss``), ``synthetic``, or
-a PNG or JPEG file or directory of them. ``--show`` and ``--save-screenshots`` need
-OpenCV and raise ``NotImplementedError``.
+a PNG, JPEG or BMP file or directory of them. ``--save-screenshots`` writes
+the frames as ``.jpg`` into the output directory every
+``live.screenshot_interval`` seconds, as the JAX CLI does; ``--show`` needs
+a display window and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def main(argv=None) -> int:
         description="Live poker table detection (PyTorch port)", parents=[pre]
     )
     ap.add_argument("--source", default="screen",
-                    help="'screen', 'synthetic', or a PNG or JPEG file or directory")
+                    help="'screen', 'synthetic', or a PNG, JPEG or BMP file or directory")
     ap.add_argument("--output-dir", default=cfg.live.output_folder)
     ap.add_argument("--detector", default=cfg.detector.weights)
     ap.add_argument("--classifier", default=cfg.rank.weights)
@@ -81,6 +83,7 @@ def main(argv=None) -> int:
         pipeline=pipeline,
         output_dir=args.output_dir,
         game_update_interval=cfg.live.game_update_interval,
+        screenshot_interval=cfg.live.screenshot_interval,
         show_window=args.show,
         save_screenshots=args.save_screenshots,
         ocr=default_ocr_engine(args.ocr_weights, args.text_detector, device=args.device)

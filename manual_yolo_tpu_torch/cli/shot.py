@@ -5,8 +5,11 @@ Usage:
       --detector weights/poker_detector.npz \
       --classifier weights/rank_classifier_matched.npz [--device cpu]
 
-The screenshot is a PNG or a JPEG; the classifier a native ``.npz`` or an
-ultralytics ``.pt``.
+The screenshot is a PNG, a JPEG or a BMP; the classifier a native ``.npz``
+or an ultralytics ``.pt``. The result JSON goes to ``--output-json`` and the
+annotated screenshot (boxes and ``class:text`` labels, as the JAX CLI draws
+them) to ``--output-image`` (``.png``, ``.jpg`` or ``.bmp``; default
+``poker_labeled.png``).
 
 Defaults come from :class:`manual_yolo_tpu_torch.config.AppConfig`;
 ``--config`` loads a JSON override file, flags override that. The device
@@ -14,7 +17,8 @@ defaults to ``cuda``; without a card the command fails unless
 ``--device cpu`` is given. OCR runs when the config enables it (the
 default), with the recognizer ensemble of ``--ocr-weights`` and the CRAFT
 text detector of ``--text-detector``; ``--no-ocr`` turns it off. The
-vision-LLM fallback and the annotated image are not ported yet.
+vision-LLM fallback (reference yolo.py:629-747) engages when
+``OPENAI_API_KEY`` is set; ``--no-llm`` turns it off.
 """
 
 from __future__ import annotations
@@ -38,8 +42,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Poker single-screenshot detector (PyTorch port)", parents=[pre]
     )
-    ap.add_argument("--image", required=True, help="input screenshot path (PNG or JPEG)")
+    ap.add_argument("--image", required=True, help="input screenshot path (PNG, JPEG or BMP)")
     ap.add_argument("--output-json", default="poker_result.json")
+    ap.add_argument("--output-image", default="poker_labeled.png")
     ap.add_argument("--detector", default=cfg.detector.weights)
     ap.add_argument("--classifier", default=cfg.rank.weights,
                     help="rank classifier, native .npz or ultralytics .pt")
@@ -55,7 +60,7 @@ def main(argv=None) -> int:
                     help="CRAFT weights for the multi-line read_region fallback")
     ap.add_argument("--no-ocr", action="store_true", help="disable the OCR pass")
     ap.add_argument("--no-llm", action="store_true",
-                    help="accepted for compatibility; the vision-LLM fallback is not ported")
+                    help="disable the vision-LLM fallback even if a key is set")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--accumulate", action="store_true",
                     help="merge into existing output JSON fill-don't-overwrite")
@@ -73,10 +78,11 @@ def main(argv=None) -> int:
     if not args.no_ocr and cfg.ocr.enabled:
         ocr = default_ocr_engine(args.ocr_weights, args.text_detector, device=args.device)
     result = process_screenshot(
-        pipeline, args.image, args.output_json, ocr=ocr, accumulate=args.accumulate,
+        pipeline, args.image, args.output_json, args.output_image, ocr=ocr,
+        accumulate=args.accumulate, use_llm_fallback=False if args.no_llm else None,
     )
     print(json.dumps(result, indent=2))
-    print(f"saved {args.output_json}", file=sys.stderr)
+    print(f"saved {args.output_json} and {args.output_image}", file=sys.stderr)
     return 0
 
 

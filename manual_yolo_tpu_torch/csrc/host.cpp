@@ -5,7 +5,8 @@
 // detector trainer's augmentation loops (cv2's HSV round trip with a
 // per-channel table, and its bilinear warpAffine), and a baseline and
 // progressive Huffman JPEG decoder (jpeg_decode) that gives the bytes
-// libjpeg-turbo gives with its defaults, as cv2.imread decodes.
+// libjpeg-turbo gives with its defaults, as cv2.imread decodes, and a
+// baseline encoder (jpeg_encode) that writes the bytes cv2.imencode writes.
 //
 // Built by runtime/native.py with `g++ -O2 -shared -fPIC` at first use and
 // bound with ctypes (plain C interface, no Python headers). Each function has
@@ -23,7 +24,8 @@
 // cv_resize_u8; hsv_jitter_u8's and warp_affine_u8's are train/data.py's
 // hsv_jitter_u8_plain and warp_affine_u8_plain, whose f32 operations they
 // repeat in the same order (the build turns FMA contraction off). jpeg_decode
-// has no plain twin: the tests hold it against cv2.imread byte for byte.
+// and jpeg_encode have no plain twin: the tests hold them against cv2.imread
+// and cv2.imencode byte for byte.
 
 #include <algorithm>
 #include <atomic>
@@ -2237,6 +2239,420 @@ struct Decoder {
 
 }  // namespace jpeg
 
+// ---------------------------------------------------------------------------
+// JPEG encoder
+//
+// libjpeg-turbo's default compression, as cv2.imencode(".jpg", img,
+// [IMWRITE_JPEG_QUALITY, q]) runs it, so the output is cv2's bytes: SOI, a
+// JFIF 1.1 APP0 (no density, no thumbnail), one DQT per table, SOF0, the
+// Annex K Huffman tables as they are first used (DC then AC of each table
+// slot), SOS, the entropy-coded data, EOI; no restart markers, no
+// optimisation. BGR input gives 4:2:0 YCbCr (component ids 1, 2, 3; Y 2x2,
+// Cb and Cr 1x1), gray input one component. The stages:
+//   * jcparam.c's quality scaling of the Annex K.1 tables, limited to 255;
+//   * jccolor.c's 16-bit fixed-point RGB->YCbCr tables (Cb and Cr rounded
+//     by 0.5 - epsilon);
+//   * edge replication to whole blocks (jcprepct.c, jcsample.c), and
+//     jcsample.c's h2v2 downsampling with its 1, 2, 1, 2 bias;
+//   * jfdctint.c's islow forward DCT (13-bit constants, PASS1_BITS 2);
+//   * jcdctmgr.c's quantisation by a reciprocal multiply (compute_reciprocal);
+//   * jccoefct.c's dummy blocks at the right and bottom of the last MCUs
+//     (zero AC, the DC of the block before);
+//   * jchuff.c's sequential Huffman coding, 0xFF bytes stuffed, the last
+//     byte padded with ones.
+
+namespace jpeg {
+
+// jcparam.c's std_luminance_quant_tbl and std_chrominance_quant_tbl
+// (Annex K.1), in natural order.
+static const uint8_t kStdLumQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+static const uint8_t kStdChrQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// jpeg_quality_scaling + jpeg_add_quant_table with force_baseline.
+static void scale_quant(const uint8_t* basic, int quality, uint16_t* out) {
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    long t = ((long)basic[i] * scale + 50L) / 100L;
+    out[i] = (uint16_t)std::min(std::max(t, 1L), 255L);
+  }
+}
+
+// compute_reciprocal for the 16-bit DCTELEM of a SIMD build: the quotient
+// of (|x| + corr) * recip >> shift rounds |x| / divisor as libjpeg-turbo does.
+struct Divisor {
+  uint32_t recip, corr, shift;
+};
+
+static Divisor reciprocal(uint32_t divisor) {
+  int b = 31 - __builtin_clz(divisor);
+  int r = 16 + b;
+  uint64_t fq = ((uint64_t)1 << r) / divisor, fr = ((uint64_t)1 << r) % divisor;
+  uint32_t c = divisor / 2;
+  if (fr == 0) {  // a power of two: fq needs one bit too many
+    fq >>= 1;
+    r--;
+  } else if (fr <= divisor / 2) {
+    c++;
+  } else {
+    fq++;
+  }
+  return Divisor{(uint32_t)fq, c, (uint32_t)r};
+}
+
+// jfdctint.c's jpeg_fdct_islow: rows, then columns; the output is scaled up by 8.
+static void fdct_islow(int32_t* d) {
+  constexpr int kConst = 13, kPass1 = 2;
+  auto descale = [](int64_t x, int n) { return (int32_t)((x + ((int64_t)1 << (n - 1))) >> n); };
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 8 : 1, next = pass ? 1 : 8;
+    const int shift_odd = pass ? kConst + kPass1 : kConst - kPass1;
+    for (int ctr = 0; ctr < 8; ++ctr) {
+      int32_t* p = d + ctr * next;
+      int64_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int64_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int64_t tmp2 = p[2 * step] + p[5 * step], tmp5 = p[2 * step] - p[5 * step];
+      int64_t tmp3 = p[3 * step] + p[4 * step], tmp4 = p[3 * step] - p[4 * step];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+      int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      if (pass) {
+        p[0] = descale(tmp10 + tmp11, kPass1);
+        p[4 * step] = descale(tmp10 - tmp11, kPass1);
+      } else {
+        p[0] = (int32_t)((tmp10 + tmp11) * (1 << kPass1));
+        p[4 * step] = (int32_t)((tmp10 - tmp11) * (1 << kPass1));
+      }
+      int64_t z1 = (tmp12 + tmp13) * 4433;
+      p[2 * step] = descale(z1 + tmp13 * 6270, shift_odd);
+      p[6 * step] = descale(z1 + tmp12 * -15137, shift_odd);
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * 9633;
+      tmp4 *= 2446;
+      tmp5 *= 16819;
+      tmp6 *= 25172;
+      tmp7 *= 12299;
+      z1 *= -7373;
+      z2 *= -20995;
+      z3 *= -16069;
+      z4 *= -3196;
+      z3 += z5;
+      z4 += z5;
+      p[7 * step] = descale(tmp4 + z1 + z3, shift_odd);
+      p[5 * step] = descale(tmp5 + z2 + z4, shift_odd);
+      p[3 * step] = descale(tmp6 + z2 + z3, shift_odd);
+      p[step] = descale(tmp7 + z1 + z4, shift_odd);
+    }
+  }
+}
+
+// jchuff.c's jpeg_make_c_derived_tbl: canonical codes from an Annex K table.
+struct HuffCode {
+  uint16_t code[256] = {0};
+  uint8_t size[256] = {0};
+};
+
+static HuffCode derive(const uint8_t* bits) {
+  const uint8_t* vals = bits + 17;
+  HuffCode t;
+  uint32_t code = 0;
+  int k = 0;
+  for (int len = 1; len <= 16; ++len) {
+    for (int i = 0; i < bits[len]; ++i, ++k) {
+      t.code[vals[k]] = (uint16_t)code++;
+      t.size[vals[k]] = (uint8_t)len;
+    }
+    code <<= 1;
+  }
+  return t;
+}
+
+struct Plane {
+  int w = 0, h = 0;  // padded to whole blocks
+  std::vector<uint8_t> px;
+  uint8_t at(int y, int x) const { return px[(size_t)y * w + x]; }
+};
+
+class Encoder {
+ public:
+  Encoder(const uint8_t* img, int height, int width, int channels, int quality)
+      : img_(img), h_(height), w_(width), nc_(channels) {
+    scale_quant(kStdLumQuant, quality, q_[0]);
+    scale_quant(kStdChrQuant, quality, q_[1]);
+    for (int t = 0; t < 2; ++t)
+      for (int i = 0; i < 64; ++i) div_[t][i] = reciprocal((uint32_t)q_[t][i] << 3);
+    uint8_t table[17 + 256];
+    auto load = [&](const uint8_t* bits, const uint8_t* vals, int n) {
+      std::memcpy(table, bits, 17);
+      std::memcpy(table + 17, vals, n);
+      return derive(table);
+    };
+    dc_[0] = load(kStdDcLumBits, kStdDcVals, 12);
+    dc_[1] = load(kStdDcChrBits, kStdDcVals, 12);
+    ac_[0] = load(kStdAcLumBits, kStdAcLumVals, 162);
+    ac_[1] = load(kStdAcChrBits, kStdAcChrVals, 162);
+  }
+
+  std::vector<uint8_t> run() {
+    out_.reserve((size_t)h_ * w_ * nc_ / 4 + 1024);
+    headers();
+    if (nc_ == 1) {
+      gray_scan();
+    } else {
+      color_scan();
+    }
+    flush();
+    put16(0xFFD9);
+    return std::move(out_);
+  }
+
+ private:
+  const uint8_t* img_;
+  int h_, w_, nc_;
+  uint16_t q_[2][64];
+  Divisor div_[2][64];
+  HuffCode dc_[2], ac_[2];
+  std::vector<uint8_t> out_;
+  uint64_t bitbuf_ = 0;
+  int nbits_ = 0;
+  int last_dc_[3] = {0, 0, 0};
+
+  void put16(int v) {
+    out_.push_back((uint8_t)(v >> 8));
+    out_.push_back((uint8_t)v);
+  }
+
+  void headers() {
+    static const uint8_t kApp0[] = {0xFF, 0xD8, 0xFF, 0xE0, 0, 16, 'J', 'F', 'I', 'F', 0,
+                                    1, 1, 0, 0, 1, 0, 1, 0, 0};
+    out_.insert(out_.end(), kApp0, kApp0 + sizeof(kApp0));
+    const int ntables = nc_ == 1 ? 1 : 2;
+    for (int t = 0; t < ntables; ++t) {
+      put16(0xFFDB);
+      put16(67);
+      out_.push_back((uint8_t)t);
+      for (int i = 0; i < 64; ++i) out_.push_back((uint8_t)q_[t][kNatural[i]]);
+    }
+    put16(0xFFC0);
+    put16(8 + 3 * nc_);
+    out_.push_back(8);
+    put16(h_);
+    put16(w_);
+    out_.push_back((uint8_t)nc_);
+    for (int c = 0; c < nc_; ++c) {
+      out_.push_back((uint8_t)(c + 1));
+      out_.push_back(nc_ == 1 ? 0x11 : (c == 0 ? 0x22 : 0x11));
+      out_.push_back(c == 0 ? 0 : 1);
+    }
+    for (int t = 0; t < ntables; ++t) {
+      dht(t, t ? kStdDcChrBits : kStdDcLumBits, kStdDcVals);
+      dht(0x10 | t, t ? kStdAcChrBits : kStdAcLumBits, t ? kStdAcChrVals : kStdAcLumVals);
+    }
+    put16(0xFFDA);
+    put16(6 + 2 * nc_);
+    out_.push_back((uint8_t)nc_);
+    for (int c = 0; c < nc_; ++c) {
+      out_.push_back((uint8_t)(c + 1));
+      out_.push_back(c == 0 ? 0x00 : 0x11);
+    }
+    out_.push_back(0);
+    out_.push_back(63);
+    out_.push_back(0);
+  }
+
+  void dht(int index, const uint8_t* bits, const uint8_t* vals) {
+    int n = 0;
+    for (int i = 1; i <= 16; ++i) n += bits[i];
+    put16(0xFFC4);
+    put16(2 + 1 + 16 + n);
+    out_.push_back((uint8_t)index);
+    out_.insert(out_.end(), bits + 1, bits + 17);
+    out_.insert(out_.end(), vals, vals + n);
+  }
+
+  void emit(uint32_t code, int size) {
+    bitbuf_ = (bitbuf_ << size) | (code & ((1u << size) - 1));
+    nbits_ += size;
+    while (nbits_ >= 8) {
+      nbits_ -= 8;
+      uint8_t b = (uint8_t)(bitbuf_ >> nbits_);
+      out_.push_back(b);
+      if (b == 0xFF) out_.push_back(0);
+    }
+    bitbuf_ &= ((uint64_t)1 << nbits_) - 1;
+  }
+
+  void flush() {
+    if (nbits_) emit(0x7F, 8 - nbits_);  // the partial byte filled with ones
+  }
+
+  // Edge-replicated copy of the (rows, cols) plane `src` (stride src_w) grown to (h, w).
+  static Plane padded(const std::vector<uint8_t>& src, int rows, int cols, int h, int w) {
+    Plane p;
+    p.h = h;
+    p.w = w;
+    p.px.resize((size_t)h * w);
+    for (int y = 0; y < h; ++y) {
+      const uint8_t* s = src.data() + (size_t)std::min(y, rows - 1) * cols;
+      uint8_t* d = p.px.data() + (size_t)y * w;
+      std::memcpy(d, s, cols);
+      std::memset(d + cols, s[cols - 1], w - cols);
+    }
+    return p;
+  }
+
+  // forward_DCT of the block at block row by, column bx, then quantize.
+  void block(const Plane& p, int by, int bx, int table, int16_t* coef) const {
+    int32_t ws[64];
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x) ws[y * 8 + x] = (int32_t)p.at(by * 8 + y, bx * 8 + x) - 128;
+    fdct_islow(ws);
+    for (int i = 0; i < 64; ++i) {
+      const Divisor& dv = div_[table][i];
+      int32_t v = ws[i];
+      uint32_t a = (uint32_t)(v < 0 ? -v : v);
+      int32_t q = (int32_t)(((uint64_t)(a + dv.corr) * dv.recip) >> dv.shift);
+      coef[i] = (int16_t)(v < 0 ? -q : q);
+    }
+  }
+
+  // jchuff.c's encode_one_block.
+  void encode(const int16_t* coef, int comp, int table) {
+    int temp = coef[0] - last_dc_[comp], temp2 = temp;
+    last_dc_[comp] = coef[0];
+    if (temp < 0) {
+      temp = -temp;
+      temp2--;
+    }
+    int nbits = 0;
+    while (temp) {
+      nbits++;
+      temp >>= 1;
+    }
+    emit(dc_[table].code[nbits], dc_[table].size[nbits]);
+    if (nbits) emit((uint32_t)temp2, nbits);
+    int r = 0;
+    for (int k = 1; k < 64; ++k) {
+      temp = coef[kNatural[k]];
+      if (temp == 0) {
+        r++;
+        continue;
+      }
+      while (r > 15) {
+        emit(ac_[table].code[0xF0], ac_[table].size[0xF0]);
+        r -= 16;
+      }
+      temp2 = temp;
+      if (temp < 0) {
+        temp = -temp;
+        temp2--;
+      }
+      nbits = 1;
+      while ((temp >>= 1)) nbits++;
+      const int sym = (r << 4) + nbits;
+      emit(ac_[table].code[sym], ac_[table].size[sym]);
+      emit((uint32_t)temp2, nbits);
+      r = 0;
+    }
+    if (r > 0) emit(ac_[table].code[0], ac_[table].size[0]);
+  }
+
+  void gray_scan() {
+    const int bw = (w_ + 7) / 8, bh = (h_ + 7) / 8;
+    std::vector<uint8_t> src(img_, img_ + (size_t)h_ * w_);
+    Plane p = padded(src, h_, w_, bh * 8, bw * 8);
+    int16_t coef[64];
+    for (int by = 0; by < bh; ++by)
+      for (int bx = 0; bx < bw; ++bx) {
+        block(p, by, bx, 0, coef);
+        encode(coef, 0, 0);
+      }
+  }
+
+  void color_scan() {
+    // jccolor.c's rgb_ycc tables (SCALEBITS 16); the input is BGR.
+    constexpr int32_t kHalf = 1 << 15, kCbCrOff = 128 << 16;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    int32_t ry[256], gy[256], by_[256], rcb[256], gcb[256], bcb[256], gcr[256], bcr[256];
+    for (int i = 0; i < 256; ++i) {
+      ry[i] = fix(0.29900) * i;
+      gy[i] = fix(0.58700) * i;
+      by_[i] = fix(0.11400) * i + kHalf;
+      rcb[i] = -fix(0.16874) * i;
+      gcb[i] = -fix(0.33126) * i;
+      bcb[i] = fix(0.50000) * i + kCbCrOff + kHalf - 1;  // also R -> Cr
+      gcr[i] = -fix(0.41869) * i;
+      bcr[i] = -fix(0.08131) * i;
+    }
+    const size_t n = (size_t)h_ * w_;
+    std::vector<uint8_t> yp(n), cb(n), cr(n);
+    for (size_t i = 0; i < n; ++i) {
+      const int b = img_[3 * i], g = img_[3 * i + 1], r = img_[3 * i + 2];
+      yp[i] = (uint8_t)((ry[r] + gy[g] + by_[b]) >> 16);
+      cb[i] = (uint8_t)((rcb[r] + gcb[g] + bcb[b]) >> 16);
+      cr[i] = (uint8_t)((bcb[r] + gcr[g] + bcr[b]) >> 16);
+    }
+    const int ybw = (w_ + 7) / 8, ybh = (h_ + 7) / 8;  // Y blocks with samples
+    const int mcux = (w_ + 15) / 16, mcuy = (h_ + 15) / 16;
+    Plane y = padded(yp, h_, w_, ybh * 8, ybw * 8);
+    // chroma: replicate to even rows and whole MCU columns, h2v2 average with
+    // the alternating bias, then replicate the last row to whole blocks
+    Plane c[2];
+    const int cw = mcux * 8, ch = (h_ + 1) / 2;
+    for (int k = 0; k < 2; ++k) {
+      Plane full = padded(k ? cr : cb, h_, w_, ch * 2, cw * 2);
+      std::vector<uint8_t> half((size_t)ch * cw);
+      for (int yy = 0; yy < ch; ++yy) {
+        const uint8_t* r0 = full.px.data() + (size_t)(2 * yy) * full.w;
+        const uint8_t* r1 = r0 + full.w;
+        int bias = 1;
+        for (int xx = 0; xx < cw; ++xx) {
+          half[(size_t)yy * cw + xx] =
+              (uint8_t)((r0[2 * xx] + r0[2 * xx + 1] + r1[2 * xx] + r1[2 * xx + 1] + bias) >> 2);
+          bias ^= 3;
+        }
+      }
+      c[k] = padded(half, ch, cw, mcuy * 8, cw);
+    }
+    int16_t coef[4][64], cc[64];
+    for (int my = 0; my < mcuy; ++my)
+      for (int mx = 0; mx < mcux; ++mx) {
+        // Y: up to 2x2 blocks; those past the samples are jccoefct.c's dummies
+        for (int yi = 0; yi < 2; ++yi) {
+          const int by = my * 2 + yi;
+          for (int xi = 0; xi < 2; ++xi) {
+            const int bx = mx * 2 + xi;
+            int16_t* blk = coef[yi * 2 + xi];
+            if (by < ybh && bx < ybw) {
+              block(y, by, bx, 0, blk);
+            } else {
+              std::memset(blk, 0, sizeof(coef[0]));
+              // right edge: the DC of the block to the left; a bottom row:
+              // the DC of the row above's last block
+              blk[0] = by < ybh ? coef[yi * 2 + xi - 1][0] : coef[1][0];
+            }
+          }
+        }
+        for (int k = 0; k < 4; ++k) encode(coef[k], 0, 0);
+        for (int k = 0; k < 2; ++k) {
+          block(c[k], my, mx, 1, cc);
+          encode(cc, 1 + k, 1);
+        }
+      }
+  }
+};
+
+}  // namespace jpeg
+
 extern "C" {
 
 // The JPEG calls return 0, or 1 with a message of at most err_len - 1 bytes
@@ -2286,5 +2702,35 @@ int32_t jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out_bgr, int32_t 
     return jpeg_error("out of memory", err, err_len);
   }
 }
+
+// Encode a (height, width, channels) uint8 image, BGR (channels 3) or gray
+// (1), at quality 0..100 as cv2.imencode(".jpg") does; *out gets a malloc'd
+// buffer of *out_len bytes, which the caller frees with jpeg_free.
+int32_t jpeg_encode(const uint8_t* img, int32_t height, int32_t width, int32_t channels,
+                    int32_t quality, uint8_t** out, int64_t* out_len, char* err,
+                    int32_t err_len) {
+  try {
+    if (height < 1 || width < 1 || height > 65500 || width > 65500)
+      jpeg::fail("a JPEG frame is 1 to 65500 pixels a side, not " + std::to_string(width) +
+                 "x" + std::to_string(height));
+    if (channels != 1 && channels != 3)
+      jpeg::fail("the encoder takes 1 or 3 channels, not " + std::to_string(channels));
+    if (quality < 0 || quality > 100)
+      jpeg::fail("quality is 0 to 100, not " + std::to_string(quality));
+    std::vector<uint8_t> bytes = jpeg::Encoder(img, height, width, channels, quality).run();
+    uint8_t* buf = (uint8_t*)std::malloc(bytes.size());
+    if (buf == nullptr) throw std::bad_alloc();
+    std::memcpy(buf, bytes.data(), bytes.size());
+    *out = buf;
+    *out_len = (int64_t)bytes.size();
+    return 0;
+  } catch (const jpeg::Error& e) {
+    return jpeg_error(e.msg, err, err_len);
+  } catch (const std::bad_alloc&) {
+    return jpeg_error("out of memory", err, err_len);
+  }
+}
+
+void jpeg_free(uint8_t* p) { std::free(p); }
 
 }  // extern "C"

@@ -1,13 +1,13 @@
-"""Frame sources: screen capture (gated), PNG and JPEG files, synthetic.
+"""Frame sources: screen capture (gated), PNG, JPEG and BMP files, synthetic.
 
 Counterpart of ``manual_yolo_tpu/runtime/capture.py``. Sources share one
 iterator protocol so every pipeline can run off a screen, a directory of
 screenshots, or a synthetic generator (tests, bench).
 
-Files are read by ``runtime/png.py::imread_bgr`` (PNG, or JPEG through
-``runtime/jpeg.py``; BGR, as ``cv2.imread`` gives), chosen by the file's first
-bytes. A BMP, any other file or a video raises ``ValueError`` naming it: a
-file the port cannot read is never skipped.
+Files are read by ``runtime/png.py::imread_bgr`` (PNG, JPEG through
+``runtime/jpeg.py`` or BMP through ``runtime/bmp.py``; BGR, as ``cv2.imread``
+gives), chosen by the file's first bytes. Any other file or a video raises
+``ValueError`` naming it: a file the port cannot read is never skipped.
 """
 
 from __future__ import annotations
@@ -53,19 +53,19 @@ def screen_source(
 
 
 def _check_readable(path: str) -> None:
-    """``ValueError`` naming the file unless it is a PNG or a JPEG."""
+    """``ValueError`` naming the file unless it is a PNG, a JPEG or a BMP."""
     if path.lower().endswith(VIDEO_EXTS):
-        raise ValueError(f"{path}: a video file; the port's frame sources read PNG and "
-                         "JPEG files only")
+        raise ValueError(f"{path}: a video file; the port's frame sources read PNG, "
+                         "JPEG and BMP files only")
     image_format(path)
 
 
 def file_source(path: str, loop: bool = False) -> Iterator[np.ndarray]:
-    """Single PNG or JPEG image, or directory of them -> BGR frames.
+    """Single PNG, JPEG or BMP image, or directory of them -> BGR frames.
 
     A directory's image files are read in sorted order, as the JAX package
-    lists them; any of them that is not a PNG or a JPEG (a BMP) raises before
-    the first frame. A video file raises too."""
+    lists them; any of them that the readers do not take raises before the
+    first frame. A video file raises too."""
     if os.path.isdir(path):
         files = sorted(
             os.path.join(path, f)
@@ -98,7 +98,7 @@ def synthetic_source(
 
 
 def make_source(spec: str, **kwargs) -> Iterator[np.ndarray]:
-    """'screen' | 'synthetic' | a PNG or JPEG file or directory path."""
+    """'screen' | 'synthetic' | a PNG, JPEG or BMP file or directory path."""
     if spec == "screen":
         return screen_source(**kwargs)
     if spec == "synthetic":

@@ -1,4 +1,5 @@
-"""A JPEG reader: what ``cv2.imread`` gives for a JPEG file, without OpenCV.
+"""A JPEG reader and writer: what ``cv2.imread`` gives for a JPEG file, and
+what ``cv2.imencode(".jpg")`` writes, without OpenCV.
 
 Baseline, extended (8-bit) and progressive Huffman JPEG with one or three
 components are decoded by the host library (``csrc/host.cpp::jpeg_decode``,
@@ -14,6 +15,14 @@ Where cv2 differs: a truncated or corrupt stream raises ``ValueError`` (cv2
 returns what it decoded, the rest grey), and so do arithmetic coding, 12-bit
 samples, CMYK or YCCK files and lossless or hierarchical JPEG, which cv2
 reads. Every error names the file and the reason.
+
+``encode_jpeg`` writes the bytes of ``cv2.imencode(".jpg", img,
+[IMWRITE_JPEG_QUALITY, quality])`` byte for byte (``csrc/host.cpp::jpeg_encode``,
+one call that releases the interpreter lock): libjpeg-turbo's defaults, a
+JFIF header, baseline Huffman coding with the standard tables, 4:2:0 YCbCr
+for BGR and one component for a 2-D gray array. cv2's other JPEG options
+(progressive, optimised tables, restart intervals, other samplings) are not
+offered.
 """
 
 from __future__ import annotations
@@ -77,3 +86,16 @@ def read_jpeg(path: str) -> np.ndarray:
     except ValueError as e:
         raise ValueError(f"{path}: {e}; only these JPEG files are read ({SUPPORTED})") from None
     return apply_orientation(img, exif_orientation(app1))
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 BGR or (H, W) uint8 gray -> the JPEG file's bytes, as
+    ``cv2.imencode`` writes them at ``quality`` (0 to 100; cv2's default 95)."""
+    return native.jpeg_encode(img, quality)
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write ``img`` to ``path`` as ``cv2.imwrite`` writes a ``.jpg``."""
+    data = encode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -6,8 +6,12 @@ left empty (one ``read_fields`` call) -> ByteTrack -> game-state update ->
 periodic game JSON -> one row appended to ``detections.jsonl``.
 
 Per-field OCR errors and tracking errors are printed and the frame goes on,
-as in the JAX package; the loop counts them in ``errors``. Screenshots and
-the display window need OpenCV and are not ported: asking for either raises
+as in the JAX package; the loop counts them in ``errors``. With
+``save_screenshots`` the frame is written, at most once every
+``screenshot_interval`` seconds, as ``screenshot_frame_{n}_{int(now)}.jpg``
+in ``output_dir`` (``runtime/jpeg.py::write_jpeg`` at quality 95: the bytes
+of the JAX package's ``cv2.imwrite``). The display window needs a display
+and OpenCV's GUI and is not ported: ``show_window=True`` raises
 ``NotImplementedError`` when the loop is built.
 """
 
@@ -23,6 +27,7 @@ import numpy as np
 
 from manual_yolo_tpu_torch.game import taxonomy
 from manual_yolo_tpu_torch.game.state import GameTracker
+from manual_yolo_tpu_torch.runtime.jpeg import write_jpeg
 from manual_yolo_tpu_torch.runtime.pipeline import FusedPipeline
 from manual_yolo_tpu_torch.track.bytetrack import ByteTrack
 from manual_yolo_tpu_torch.utils.profiling import StageTimer
@@ -33,6 +38,7 @@ class LiveLoop:
     pipeline: FusedPipeline
     output_dir: str = "live_output"
     game_update_interval: float = 0.5
+    screenshot_interval: float = 0.5
     save_screenshots: bool = False
     show_window: bool = False
     ocr: Optional[object] = None  # OCREngine.read_field-compatible callable
@@ -41,16 +47,15 @@ class LiveLoop:
     timer: StageTimer = field(default_factory=StageTimer)
 
     def __post_init__(self):
-        if self.save_screenshots:
-            raise NotImplementedError("save_screenshots needs an image writer; not ported yet")
         if self.show_window:
-            raise NotImplementedError("show_window needs a display window; not ported yet")
+            raise NotImplementedError("show_window needs a display window; not ported")
         os.makedirs(self.output_dir, exist_ok=True)
         self.game = GameTracker(output_dir=self.output_dir)
         self._jsonl = open(
             os.path.join(self.output_dir, "detections.jsonl"), "a", encoding="utf-8"
         )
         self._last_save = 0.0
+        self._last_shot = 0.0
         self.frame_count = 0
         self.errors = 0  # caught per-field OCR and tracking errors
 
@@ -126,6 +131,15 @@ class LiveLoop:
         if now - self._last_save >= self.game_update_interval:
             self.game.save()
             self._last_save = now
+        if self.save_screenshots and now - self._last_shot >= self.screenshot_interval:
+            write_jpeg(
+                os.path.join(
+                    self.output_dir,
+                    f"screenshot_frame_{self.frame_count}_{int(now)}.jpg",
+                ),
+                frame_bgr,
+            )
+            self._last_shot = now
 
         with self.timer.stage("persist"):
             self._jsonl.write(

@@ -5,8 +5,9 @@ rescore, the serving path's frame ring, JSONL appender and pixel loops
 (``bgra_to_bgr``, ``crop_u8``, ``decimate_u8_into``, ``resize_u8``), its
 delta-codec encoders (``nibble_encode``, ``tribit_encode``, ``seg_encode``)
 and the libc ``memcmp`` compare, plus the PNG row unfilter of
-``runtime/png.py``, the JPEG decoder of ``runtime/jpeg.py`` (``jpeg_decode``;
-held against ``cv2.imread`` in the tests, it has no Python twin) and the
+``runtime/png.py``, the JPEG decoder and encoder of ``runtime/jpeg.py``
+(``jpeg_decode``, ``jpeg_encode``; held against ``cv2.imread`` and
+``cv2.imencode`` in the tests, they have no Python twin) and the
 detector trainer's ``hsv_jitter_u8`` and
 ``warp_affine_u8`` (their twins are in ``train/data.py``). The library is
 compiled by ``g++ -O2 -ffp-contract=off -shared -fPIC`` at first use into ``manual_yolo_tpu_torch/_build/``
@@ -82,6 +83,10 @@ def library() -> ctypes.CDLL:
     lib.jpeg_header.restype = i32
     lib.jpeg_decode.argtypes = [p, i64, p, i32, i32, ctypes.c_char_p, i32]
     lib.jpeg_decode.restype = i32
+    lib.jpeg_encode.argtypes = [p, i32, i32, i32, i32, p, p, ctypes.c_char_p, i32]
+    lib.jpeg_encode.restype = i32
+    lib.jpeg_free.argtypes = [p]
+    lib.jpeg_free.restype = None
     lib.fr_create.argtypes = [i32, i64]
     lib.fr_create.restype = p
     lib.fr_destroy.argtypes = [p]
@@ -192,6 +197,27 @@ def jpeg_decode(data: bytes) -> Tuple[np.ndarray, Optional[bytes]]:
                        err, len(err)):
         raise ValueError(err.value.decode(errors="replace"))
     return out, (bytes(data[app1_pos:app1_pos + app1_len]) if app1_pos >= 0 else None)
+
+
+def jpeg_encode(img: np.ndarray, quality: int) -> bytes:
+    """Encode (H, W, 3) uint8 BGR or (H, W) uint8 gray as the JPEG file
+    ``cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])`` writes,
+    in one call with the interpreter lock released. A shape, size or quality
+    the encoder does not take raises ``ValueError`` with its reason."""
+    x = np.ascontiguousarray(img)
+    if x.dtype != np.uint8 or x.ndim not in (2, 3) or (x.ndim == 3 and x.shape[2] != 3):
+        raise ValueError(f"the JPEG encoder takes (H, W, 3) BGR or (H, W) gray uint8, "
+                         f"got {x.dtype} {x.shape}")
+    lib = library()
+    out, size = ctypes.c_void_p(), ctypes.c_int64()
+    err = ctypes.create_string_buffer(256)
+    if lib.jpeg_encode(x.ctypes.data, x.shape[0], x.shape[1], 1 if x.ndim == 2 else 3,
+                       int(quality), ctypes.byref(out), ctypes.byref(size), err, len(err)):
+        raise ValueError(err.value.decode(errors="replace"))
+    try:
+        return ctypes.string_at(out, size.value)
+    finally:
+        lib.jpeg_free(out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """A PNG reader and writer (standard library ``zlib``, numpy and the port's
-host library), and ``imread_bgr``, the port's ``cv2.imread``.
+host library), ``imread_bgr``, the port's ``cv2.imread``, and ``imwrite``,
+its ``cv2.imwrite``.
 
 ``imread_bgr`` picks the reader by the file's first bytes, as cv2 picks its
 decoder: the PNG signature for ``read_png``, ``FF D8 FF`` for
-``runtime/jpeg.py::read_jpeg``; any other file raises ``ValueError``. Both
-give what ``cv2.imread(path)`` gives: three 8-bit channels, BGR, so the port
-does not depend on OpenCV.
+``runtime/jpeg.py::read_jpeg``, ``BM`` for ``runtime/bmp.py::read_bmp``; any
+other file raises ``ValueError``. Each gives what ``cv2.imread(path)``
+gives: three 8-bit channels, BGR, so the port does not depend on OpenCV.
+``imwrite`` picks the writer by the extension, as cv2 does.
 
 ``read_png`` reads every PNG that the standard allows: grayscale, RGB
 and palette images, with or without alpha, at 1 to 16 bits per sample,
@@ -28,11 +30,11 @@ import zlib
 
 import numpy as np
 
-from manual_yolo_tpu_torch.runtime import jpeg, native
+from manual_yolo_tpu_torch.runtime import bmp, jpeg, native
 
 PNG_SUPPORTED = ("PNG: grayscale, RGB or palette, with or without alpha, 1 to 16 bits "
                  "per sample, interlaced or not")
-SUPPORTED = f"{PNG_SUPPORTED}; {jpeg.SUPPORTED}"
+SUPPORTED = f"{PNG_SUPPORTED}; {jpeg.SUPPORTED}; {bmp.SUPPORTED}"
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, allowed bit depths)
 _FORMATS = {
@@ -169,25 +171,47 @@ def read_png(path: str) -> np.ndarray:
 
 
 def image_format(path: str) -> str:
-    """"png" or "jpeg" by the file's first bytes; ``ValueError`` naming the
-    file for anything else (BMP, a video, ...)."""
+    """"png", "jpeg" or "bmp" by the file's first bytes; ``ValueError``
+    naming the file for anything else (TIFF, a video, ...)."""
     with open(path, "rb") as f:
         head = f.read(len(_SIGNATURE))
     if head == _SIGNATURE:
         return "png"
     if head.startswith(jpeg.SIGNATURE):
         return "jpeg"
-    raise ValueError(f"{path}: not a PNG or JPEG file; the port reads PNG and JPEG only "
-                     f"({SUPPORTED})")
+    if head.startswith(bmp.SIGNATURE):
+        return "bmp"
+    raise ValueError(f"{path}: not a PNG, JPEG or BMP file; the port reads PNG, JPEG and "
+                     f"BMP only ({SUPPORTED})")
 
 
 def imread_bgr(path: str) -> np.ndarray:
-    """Read a PNG or JPEG file as (H, W, 3) uint8 BGR, as ``cv2.imread`` returns it."""
+    """Read a PNG, JPEG or BMP file as (H, W, 3) uint8 BGR, as ``cv2.imread`` returns it."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"cannot read image: {path}")
-    if image_format(path) == "jpeg":
+    kind = image_format(path)
+    if kind == "jpeg":
         return jpeg.read_jpeg(path)
+    if kind == "bmp":
+        return bmp.read_bmp(path)
     return np.ascontiguousarray(read_png(path)[..., ::-1])
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 BGR or (H, W) uint8 gray by the path's extension,
+    as ``cv2.imwrite`` does with its defaults: ``.png`` (``write_png``),
+    ``.jpg``/``.jpeg`` (``jpeg.write_jpeg`` at quality 95) or ``.bmp``
+    (``bmp.write_bmp``); any other extension raises ``ValueError``."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        write_png(path, img)
+    elif ext in (".jpg", ".jpeg"):
+        jpeg.write_jpeg(path, img)
+    elif ext == ".bmp":
+        bmp.write_bmp(path, img)
+    else:
+        raise ValueError(f"{path}: cannot write a {ext or 'extension-less'} file; the port "
+                         "writes .png, .jpg, .jpeg and .bmp")
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -1,17 +1,19 @@
-"""Single-screenshot pipeline: image file in -> flat result JSON out.
+"""Single-screenshot pipeline: image file in -> flat result JSON and
+annotated image out.
 
 Counterpart of ``manual_yolo_tpu/runtime/shot.py`` (``process_screenshot``,
-``load_fused_pipeline``, ``llm_should_escalate``). The image, PNG or JPEG,
-is read by the port's own readers (``runtime/png.py::imread_bgr``) instead
-of ``cv2.imread``. Rank
-fields are read by the batched rank classifier inside ``FusedPipeline``;
-every OCR-class field it leaves empty (stacks, bets, pot, names, game_id, and
+``load_fused_pipeline``, ``llm_should_escalate``, ``_llm_escalate``). The
+image, PNG, JPEG or BMP, is read by the port's own readers
+(``runtime/png.py::imread_bgr``) instead of ``cv2.imread``. Rank fields are
+read by the batched rank classifier inside ``FusedPipeline``; every
+OCR-class field it leaves empty (stacks, bets, pot, names, game_id, and
 ranks below the classifier's gate) is read by the OCR engine when one is
-given (``runtime/ocr.py``).
-
-Not ported yet: the annotated output image (it needs OpenCV's text
-rendering) and the vision-LLM fallback. Asking for either raises
-``NotImplementedError``.
+given (``runtime/ocr.py``); important fields still empty or below the
+kind's confidence gate go to the vision-LLM fallback
+(``runtime/llm_fallback.py``) when it is on, by default when
+``OPENAI_API_KEY`` is set. The annotated image is drawn by
+``runtime/draw.py`` (cv2's rectangle and label pixels) and written by
+``runtime/png.py::imwrite`` (PNG, JPEG or BMP by the extension).
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ from manual_yolo_tpu_torch.game import schema, taxonomy
 from manual_yolo_tpu_torch.game.accumulate import merge_detected_values
 from manual_yolo_tpu_torch.game.text import suit_char
 from manual_yolo_tpu_torch.models.classifier import RankClassifier
+from manual_yolo_tpu_torch.runtime import llm_fallback
+from manual_yolo_tpu_torch.runtime.draw import put_text, rectangle
 from manual_yolo_tpu_torch.runtime.engine import load_detector
 from manual_yolo_tpu_torch.runtime.ocr import OCREngine, field_kind
 from manual_yolo_tpu_torch.runtime.pipeline import FusedPipeline
-from manual_yolo_tpu_torch.runtime.png import imread_bgr
+from manual_yolo_tpu_torch.runtime.png import imread_bgr, imwrite
 
 
 def _safe_crop(frame: np.ndarray, bbox: List[int]) -> np.ndarray:
@@ -52,29 +56,73 @@ def llm_should_escalate(d: Dict) -> bool:
     return conf < gate
 
 
+def _llm_escalate(frame: np.ndarray, dets: List[Dict]) -> int:
+    """Vision-LLM fallback for important fields that local reads left empty
+    or read below the kind's confidence gate (reference ``yolo.py:629-747``).
+
+    Builds a labelled collage of the failing crops, queries the LLM once,
+    validates each returned value with the OCR engine's per-kind rules, and
+    fills the detections in place. Returns the number of fields filled."""
+    important = set(llm_fallback.IMPORTANT_KEYS)
+    missing = [
+        d for d in dets
+        if d["class_name"] in taxonomy.OCR_CLASSES
+        and d["class_name"] in important
+        and llm_should_escalate(d)
+    ]
+    if not missing:
+        return 0
+    collage = llm_fallback.build_collage(
+        [(d["class_name"], _safe_crop(frame, d["bbox"])) for d in missing]
+    )
+    if collage is None:
+        return 0
+    values = llm_fallback.query_vision_llm(collage, [d["class_name"] for d in missing])
+    filled = 0
+    for d in missing:
+        raw = values.get(d["class_name"])
+        if not raw:
+            continue
+        kind = field_kind(d["class_name"])
+        text = OCREngine._validate(kind, d["class_name"].lower(), str(raw))
+        if text:
+            d["ocr_text"] = text
+            filled += 1
+    return filled
+
+
+def annotate(frame: np.ndarray, dets: List[Dict]) -> np.ndarray:
+    """A copy of ``frame`` with each detection's box (blue, 2 px) and its
+    ``class_name:ocr_text`` label (green, scale 0.5) drawn as the JAX
+    package draws them with cv2."""
+    annotated = frame.copy()
+    for d in dets:
+        x1, y1, x2, y2 = d["bbox"]
+        label = f"{d['class_name']}:{d.get('ocr_text') or ''}"
+        rectangle(annotated, (x1, y1), (x2, y2), (255, 0, 0), 2)
+        put_text(annotated, label, (x1, max(0, y1 - 5)), 0.5, (0, 255, 0), 1)
+    return annotated
+
+
 def process_screenshot(
     pipeline: FusedPipeline,
     image_path: str,
     output_json: str = "poker_result.json",
-    output_image: Optional[str] = None,
+    output_image: Optional[str] = "poker_labeled.png",
     ocr=None,
     accumulate: bool = False,
-    use_llm_fallback: bool = False,
+    use_llm_fallback: Optional[bool] = None,
 ) -> Dict:
     """Run the single-shot pipeline on an image file; returns the result dict.
 
     ``ocr`` reads the OCR-class fields the pipeline left empty: an object with
     ``read_fields_conf`` (an ``OCREngine``) or ``read_fields``, or a
-    ``(crop_bgr, class_name) -> text`` callable. ``accumulate=True`` merges
-    newly-read fields into the existing output JSON fill-don't-overwrite.
-    ``output_image`` and ``use_llm_fallback=True`` raise
-    ``NotImplementedError``: the annotated image and the vision-LLM fallback
-    are not ported."""
-    if output_image:
-        raise NotImplementedError("the annotated output image is not ported yet")
-    if use_llm_fallback:
-        raise NotImplementedError("the vision-LLM fallback is not ported yet")
-
+    ``(crop_bgr, class_name) -> text`` callable. ``use_llm_fallback=None``
+    turns the vision-LLM escalation on when ``OPENAI_API_KEY`` is set; the
+    query gives nothing offline. ``accumulate=True`` merges newly-read fields
+    into the existing output JSON fill-don't-overwrite. ``output_image``
+    (``.png``, ``.jpg``/``.jpeg`` or ``.bmp``; ``None`` for none) gets the
+    frame with every detection drawn (``annotate``)."""
     frame = imread_bgr(image_path)
     dets = pipeline.process_frame(frame)
 
@@ -105,6 +153,12 @@ def process_screenshot(
         else:
             for d in todo:
                 d["ocr_text"] = ocr(_safe_crop(frame, d["bbox"]), d["class_name"]) or ""
+
+    # pass 2: vision-LLM escalation for important fields still empty or unsure
+    if use_llm_fallback is None:
+        use_llm_fallback = bool(os.environ.get("OPENAI_API_KEY"))
+    if use_llm_fallback:
+        _llm_escalate(frame, dets)
 
     card_ranks: Dict[str, str] = {}
     card_suits: Dict[str, str] = {}
@@ -142,6 +196,9 @@ def process_screenshot(
             existing = {}
         result, _changes = merge_detected_values(existing, result)
     schema.write_json_atomic(os.path.abspath(output_json), result)
+
+    if output_image:
+        imwrite(output_image, annotate(frame, dets))
     return result
 
 

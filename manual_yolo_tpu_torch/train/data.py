@@ -5,10 +5,10 @@ signature and draws from the ``np.random.Generator`` in the same order and
 number as the JAX package's, so one seed gives the same crops, boxes, masks
 and generator state. The pixel operations stand in for cv2's:
 
-  * ``cv2.imread`` -> ``runtime/png.py::imread_bgr``: PNG and JPEG files
-    (``runtime/jpeg.py``), the same bytes as cv2. Any other file (a BMP), or
-    one the readers cannot take, raises ``ValueError`` naming the file (the
-    JAX package skips a file cv2 cannot decode);
+  * ``cv2.imread`` -> ``runtime/png.py::imread_bgr``: PNG, JPEG and BMP
+    files (``runtime/jpeg.py``, ``runtime/bmp.py``), the same bytes as cv2.
+    Any other file, or one the readers cannot take, raises ``ValueError``
+    naming the file (the JAX package skips a file cv2 cannot decode);
   * uint8 ``INTER_LINEAR`` resize -> the host library's ``resize_u8``, byte
     for byte; the f32 one -> ``ops/image.py::cv_resize``;
   * ``INTER_AREA`` downscale -> ``resize_area_u8``, byte for byte;

@@ -10,7 +10,11 @@ on the card against the CPU, the kernel on one eval batch of candidates
 (B=8, conf 0.001), two bf16 detector steps, and ``cli.train_cls``; the
 reference's formats: a .pt classifier's ``classify_crops`` on the card
 against the CPU, and ``build_matched_rank_dataset`` over the JPEG fixtures
-on the card against the CPU.
+on the card against the CPU; what the screenshot and live CLIs write: the
+annotated screenshot on the card in one launch, its PNG equal to
+``annotate`` of the run's detections, and the JPEG encoder of the card's
+host library giving cv2's committed hashes and writing the live loop's
+screenshots.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -545,3 +549,76 @@ def test_build_matched_on_card_matches_cpu(cuda_device, tmp_path, capsys):
         assert got[2] == ref[2] and len(got[1]) == 13 * (jitter + 1)
         np.testing.assert_array_equal(got[1], ref[1])
         np.testing.assert_array_equal(got[0], ref[0])
+
+
+class _Recording:
+    """Delegates process_frame and keeps the detections it returned."""
+
+    def __init__(self, pipeline):
+        self.pipeline, self.dets = pipeline, None
+
+    def process_frame(self, frame):
+        self.dets = self.pipeline.process_frame(frame)
+        return [dict(d) for d in self.dets]
+
+
+@pytest.mark.gpu
+def test_annotated_shot_on_card_is_one_launch(cuda_device, tmp_path):
+    """process_screenshot with its default output image on the card: one
+    kernel launch; the PNG equals annotate() of the run's detections and
+    the input frame outside the drawn boxes and labels."""
+    from manual_yolo_tpu_torch.ops import nms_kernel
+    from manual_yolo_tpu_torch.runtime.draw import text_size
+
+    pipe = _Recording(pt_shot.load_fused_pipeline(DET, CLS, imgsz=640, conf=0.5,
+                                                  device=cuda_device))
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        nms_kernel.nms_keep.launches = 0
+        pt_shot.process_screenshot(pipe, IMAGE, "r.json", use_llm_fallback=False)
+        torch.cuda.synchronize()
+        assert nms_kernel.nms_keep.launches == 1
+        got = png.imread_bgr("poker_labeled.png")
+    finally:
+        os.chdir(cwd)
+    frame = png.imread_bgr(IMAGE)
+    np.testing.assert_array_equal(got, pt_shot.annotate(frame, pipe.dets))
+    drawn = np.zeros(frame.shape[:2], bool)
+    for d in pipe.dets:
+        x1, y1, x2, y2 = d["bbox"]
+        drawn[max(0, y1 - 1):y2 + 2, max(0, x1 - 1):x2 + 2] = True
+        (w, h), base = text_size(f"{d['class_name']}:{d.get('ocr_text') or ''}", 0.5)
+        oy = max(0, y1 - 5)
+        drawn[max(0, oy - h):oy + base + 1, max(0, x1):x1 + w] = True
+    np.testing.assert_array_equal(got[~drawn], frame[~drawn])
+    assert len(pipe.dets) >= 10
+
+
+@pytest.mark.gpu
+def test_jpeg_encoder_on_card_host(cuda_device, tmp_path, monkeypatch):
+    """The host library built on the card's host encodes the committed cases
+    to cv2's hashes, and the live loop on the card writes its screenshots
+    through it: one encode per saved frame, the bytes of encode_jpeg."""
+    import hashlib
+
+    from manual_yolo_tpu_torch.runtime.jpeg import encode_jpeg
+    from manual_yolo_tpu_torch.runtime.live import LiveLoop
+    from torch_encode_cases import CASES, load_hashes, sources
+
+    committed = load_hashes()["cases"]
+    src = sources(png.imread_bgr)
+    for name, (source, quality) in CASES.items():
+        digest = hashlib.sha256(encode_jpeg(src[source], quality)).hexdigest()
+        assert digest == committed[name]["sha256"], name
+    calls = []
+    real = native.jpeg_encode
+    monkeypatch.setattr(native, "jpeg_encode", lambda img, q: calls.append(q) or real(img, q))
+    pipe = pt_shot.load_fused_pipeline(DET_N, CLS, imgsz=320, conf=0.25, device=cuda_device)
+    loop = LiveLoop(pipeline=pipe, output_dir=str(tmp_path), save_screenshots=True,
+                    screenshot_interval=0.0)
+    frame = png.imread_bgr(IMAGE)
+    loop.run(iter([frame, frame[::-1].copy()]), max_frames=2)
+    shots = sorted(f for f in os.listdir(tmp_path) if f.endswith(".jpg"))
+    assert len(shots) == 2 and calls == [95, 95]
+    assert (tmp_path / shots[0]).read_bytes() in (encode_jpeg(frame), encode_jpeg(frame[::-1]))

@@ -240,10 +240,11 @@ def test_twelve_bit_and_cmyk_raise(tmp_path, example):
 
 
 def test_other_formats_raise_naming_the_file(tmp_path, example):
-    bmp = tmp_path / "shot.bmp"
-    cv2.imwrite(str(bmp), example[:8, :8])
-    with pytest.raises(ValueError, match="shot.bmp: not a PNG or JPEG"):
-        imread_bgr(str(bmp))
+    """A TIFF raises, naming the file (a BMP is read: tests/test_torch_bmp.py)."""
+    tiff = tmp_path / "shot.tiff"
+    cv2.imwrite(str(tiff), example[:8, :8])
+    with pytest.raises(ValueError, match="shot.tiff: not a PNG, JPEG or BMP"):
+        imread_bgr(str(tiff))
     bad = tmp_path / "bad.jpg"
     bad.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00")
     with pytest.raises(ValueError, match="bad.jpg: .*(no frame header|truncated)"):

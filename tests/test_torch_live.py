@@ -404,14 +404,32 @@ class _Canned:
                  "conf": 0.9, "ocr_text": ""}]
 
 
-def test_live_loop_counts_caught_errors_and_refuses_cv2_options(tmp_path):
+def test_live_loop_counts_caught_errors_and_refuses_cv2_options(tmp_path, monkeypatch):
+    """A failing OCR is counted and the frame goes on. save_screenshots
+    writes the JAX LiveLoop's .jpg files under a fixed clock: the same names
+    (every other frame at an interval of 2 s, the clock moving 1.5 s a
+    step) and the same bytes. show_window still raises: it needs a display."""
+    from torch_loop_cases import FakeClock
+
     loop = pt_live.LiveLoop(pipeline=_Canned(), output_dir=str(tmp_path), ocr=_Failing())
     info = loop.step(np.zeros((20, 20, 3), np.uint8))
     loop.close()
     assert loop.errors == 1 and info["detections"][0]["ocr_text"] == ""
-    for kw in ({"save_screenshots": True}, {"show_window": True}):
-        with pytest.raises(NotImplementedError):
-            pt_live.LiveLoop(pipeline=_Canned(), output_dir=str(tmp_path / "x"), **kw)
+    frames = [np.ascontiguousarray(f[200:520, 300:781]) for f in shifted(example())]
+    shots = {}
+    for name, mod in (("pt", pt_live), ("jx", jax_live)):
+        monkeypatch.setattr(mod, "time", FakeClock())
+        out = tmp_path / f"shots_{name}"
+        shot_loop = mod.LiveLoop(pipeline=_Canned(), output_dir=str(out), save_screenshots=True,
+                                 screenshot_interval=2.0)
+        shot_loop.run(iter(frames), max_frames=len(frames))
+        shots[name] = {f: (out / f).read_bytes() for f in os.listdir(out) if f.endswith(".jpg")}
+    assert len(shots["jx"]) == len(frames) // 2 and len(frames) >= 4
+    assert sorted(shots["pt"]) == sorted(shots["jx"])
+    for f, data in shots["pt"].items():
+        assert data == shots["jx"][f], f
+    with pytest.raises(NotImplementedError):
+        pt_live.LiveLoop(pipeline=_Canned(), output_dir=str(tmp_path / "x"), show_window=True)
 
 
 # --- frame sources -------------------------------------------------------------
@@ -431,21 +449,25 @@ def test_file_source_reads_png_directory_like_jax(tmp_path):
     np.testing.assert_array_equal(single[0], cv2.imread(IMAGE))
 
 
-@pytest.mark.parametrize("name", ["shot.jpg", "clip.mp4", "shot.bmp"])
+@pytest.mark.parametrize("name", ["shot.jpg", "clip.mp4", "shot.bmp", "shot.tiff"])
 def test_file_source_refuses_what_it_cannot_read(tmp_path, name):
-    """A JPEG path, and a directory holding it beside a PNG, read as cv2
-    reads them (the JAX package's frames). A BMP or video path raises,
-    naming the file and the formats that are read; so does a directory
-    holding a BMP (a directory's videos are not frames in either package)."""
+    """A JPEG or BMP path, and a directory holding it beside a PNG, read as
+    cv2 reads them (the JAX package's frames). A video path raises, naming
+    the file and the formats that are read; so does a file of another
+    format under an image name (a TIFF saved as .bmp), alone or in a
+    directory (a directory's videos are not frames in either package)."""
     img = cv2.imread(IMAGE)[:60, :90]
     cv2.imwrite(str(tmp_path / "a.png"), np.zeros((4, 4, 3), np.uint8))
     if name.endswith(".mp4"):
         (tmp_path / name).write_bytes(b"\x00\x00\x00\x18ftypmp42")
+    elif name.endswith(".tiff"):
+        name = "tiff_as.bmp"
+        (tmp_path / name).write_bytes(cv2.imencode(".tiff", img)[1].tobytes())
     else:
         cv2.imwrite(str(tmp_path / name), img)
     paths = [tmp_path / name] + ([] if name.endswith(".mp4") else [tmp_path])
     for path in paths:
-        if name.endswith(".jpg"):
+        if name in ("shot.jpg", "shot.bmp"):
             got = list(pt_capture.file_source(str(path)))
             ref = list(jax_capture.file_source(str(path)))
             assert len(got) == len(ref) == (1 if path.is_file() else 2)
@@ -488,6 +510,31 @@ def test_cli_detect_on_cpu_matches_jax(tmp_path, capsys):
     assert len(ref) == 1 and len(ref[0]["detections"]) >= 10  # the PNG is one frame
     assert_close(got, ref)
     assert sorted(os.listdir(tmp_path / "pt")) == sorted(os.listdir(tmp_path / "jx"))
+
+
+def test_cli_detect_save_screenshots(tmp_path, capsys):
+    """--save-screenshots with live.screenshot_interval 0 from the config
+    writes one .jpg per frame, each decoding to the frame as cv2 does."""
+    from manual_yolo_tpu_torch.cli import detect as pt_cli
+
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"ocr": {"enabled": False}, "live": {"screenshot_interval": 0.0},
+                               "detector": {"compute_dtype": "float32"}}))
+    src = tmp_path / "frames"
+    src.mkdir()
+    frames = [np.ascontiguousarray(f[:240, :320]) for f in shifted(example())[:2]]
+    for i, f in enumerate(frames):
+        cv2.imwrite(str(src / f"f{i}.png"), f)
+    out = tmp_path / "out"
+    assert pt_cli.main(["--config", str(cfg), "--source", str(src), "--detector", DET_N,
+                        "--classifier", CLS, "--imgsz", str(IMGSZ), "--device", "cpu",
+                        "--save-screenshots", "--output-dir", str(out)]) == 0
+    capsys.readouterr()
+    jpgs = sorted((f for f in os.listdir(out) if f.endswith(".jpg")),
+                  key=lambda f: int(f.split("_")[2]))
+    assert [f.split("_")[2] for f in jpgs] == ["0", "1"]
+    for f, frame in zip(jpgs, frames):
+        assert (out / f).read_bytes() == cv2.imencode(".jpg", frame)[1].tobytes()
 
 
 def test_cli_detect_needs_cpu_or_a_card(tmp_path, monkeypatch):

@@ -283,7 +283,8 @@ def test_process_screenshot_with_ocr_matches_jax(engines, pipelines, tmp_path):
     the JAX package's, but for its time field; names, stacks and a bet are
     filled."""
     (pe, je), (pp, jp) = engines, pipelines
-    res_pt = pt_shot.process_screenshot(pp, IMAGE, str(tmp_path / "pt.json"), ocr=pe)
+    res_pt = pt_shot.process_screenshot(pp, IMAGE, str(tmp_path / "pt.json"), output_image=None,
+                                        ocr=pe, use_llm_fallback=False)
     res_jx = jax_shot.process_screenshot(jp, IMAGE, str(tmp_path / "jx.json"), output_image=None,
                                          ocr=je, use_llm_fallback=False)
     assert json.loads((tmp_path / "pt.json").read_text()) == res_pt
@@ -306,7 +307,8 @@ def test_process_screenshot_ocr_protocols_match_jax(pipelines, tmp_path, kind):
     pp, jp = pipelines
     ocr = _ReadFieldsOnly() if kind == "read_fields" else (
         lambda crop, name: f"{name}:{crop.shape[0]}x{crop.shape[1]}")
-    res_pt = pt_shot.process_screenshot(pp, IMAGE, str(tmp_path / "pt.json"), ocr=ocr)
+    res_pt = pt_shot.process_screenshot(pp, IMAGE, str(tmp_path / "pt.json"), output_image=None,
+                                        ocr=ocr, use_llm_fallback=False)
     res_jx = jax_shot.process_screenshot(jp, IMAGE, str(tmp_path / "jx.json"), output_image=None,
                                          ocr=ocr, use_llm_fallback=False)
     res_pt.pop("time"), res_jx.pop("time")

@@ -97,7 +97,8 @@ def test_process_screenshot_json_matches_jax(pipelines, tmp_path):
     PNG with its own decoder; the JAX side with cv2."""
     pt, jx = pipelines
     out_pt, out_jx = tmp_path / "pt.json", tmp_path / "jx.json"
-    res_pt = pt_shot.process_screenshot(pt, IMAGE, str(out_pt))
+    res_pt = pt_shot.process_screenshot(pt, IMAGE, str(out_pt), output_image=None,
+                                        use_llm_fallback=False)
     res_jx = jax_shot.process_screenshot(jx, IMAGE, str(out_jx), output_image=None,
                                          use_llm_fallback=False)
     on_disk = json.loads(out_pt.read_text())
@@ -128,7 +129,8 @@ def test_accumulate_merges_like_jax(pipelines, tmp_path):
     seed = {"game_id": "G1", "card1": "", "my_stack": "100"}
     for p in ("pt.json", "jx.json"):
         (tmp_path / p).write_text(json.dumps(seed))
-    res_pt = pt_shot.process_screenshot(pt, IMAGE, str(tmp_path / "pt.json"), accumulate=True)
+    res_pt = pt_shot.process_screenshot(pt, IMAGE, str(tmp_path / "pt.json"), output_image=None,
+                                        accumulate=True, use_llm_fallback=False)
     res_jx = jax_shot.process_screenshot(jx, IMAGE, str(tmp_path / "jx.json"), output_image=None,
                                          accumulate=True, use_llm_fallback=False)
     res_pt.pop("time"), res_jx.pop("time")
@@ -152,23 +154,84 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch):
         cli.main(["--image", IMAGE])
 
 
-def test_unported_options_raise(pipelines, tmp_path):
-    pt, _ = pipelines
-    with pytest.raises(NotImplementedError):
-        pt_shot.process_screenshot(pt, IMAGE, str(tmp_path / "r.json"), output_image="x.png")
-    with pytest.raises(NotImplementedError):
-        pt_shot.process_screenshot(pt, IMAGE, str(tmp_path / "r.json"), use_llm_fallback=True)
-    assert not (tmp_path / "r.json").exists()
+@pytest.fixture(scope="module")
+def pipelines_320():
+    """Both packages' pipelines at imgsz 320, f32, conf 0.5 (the CLI's)."""
+    kw = dict(imgsz=320, conf=0.5, iou=0.7, compute_dtype="float32")
+    return (pt_shot.load_fused_pipeline(DET, CLS, device="cpu", **kw),
+            jax_shot.load_fused_pipeline(DET, CLS, **kw))
 
 
-def test_cli_shot_on_cpu_matches_jax(tmp_path, capsys):
+class _Replay:
+    """process_frame stub: the same detections to both packages."""
+
+    def __init__(self, dets):
+        self.dets = dets
+
+    def process_frame(self, frame):
+        return [dict(d) for d in self.dets]
+
+
+def test_unported_options_raise(pipelines_320, tmp_path, monkeypatch):
+    """The options that raised before this slice now work: output_image
+    (.png, .jpg, .bmp) and use_llm_fallback. On the same f32 detections at
+    imgsz 320 (the JAX pipeline's), the port's annotated image equals the
+    JAX package's cv2 drawing outside the label text boxes, and inside them
+    too (the label font is cv2's); the JPEG and BMP files are cv2's bytes.
+    An extension neither writes raises; the LLM fallback asks once."""
+    import cv2
+
+    from manual_yolo_tpu.runtime import llm_fallback as jax_llm
+    from manual_yolo_tpu_torch.runtime import draw
+    from manual_yolo_tpu_torch.runtime import llm_fallback as pt_llm
+
+    _, jx = pipelines_320
+    dets = jx.process_frame(cv2.imread(IMAGE))
+    assert len(dets) >= 10
+    for ext in (".png", ".jpg", ".bmp"):
+        out_pt, out_jx = tmp_path / f"pt{ext}", tmp_path / f"jx{ext}"
+        pt_shot.process_screenshot(_Replay(dets), IMAGE, str(tmp_path / "pt.json"),
+                                   output_image=str(out_pt), use_llm_fallback=False)
+        jax_shot.process_screenshot(_Replay(dets), IMAGE, str(tmp_path / "jx.json"),
+                                    output_image=str(out_jx), use_llm_fallback=False)
+        got, ref = cv2.imread(str(out_pt)), cv2.imread(str(out_jx))
+        outside = np.ones(got.shape[:2], bool)
+        for d in dets:
+            x1, y1 = d["bbox"][:2]
+            (w, h), base = draw.text_size(f"{d['class_name']}:{d.get('ocr_text') or ''}", 0.5)
+            oy = max(0, y1 - 5)
+            outside[max(0, oy - h):oy + base + 1, max(0, x1):x1 + w] = False
+        np.testing.assert_array_equal(got[outside], ref[outside])
+        np.testing.assert_array_equal(got, ref)
+        assert not np.array_equal(got, cv2.imread(IMAGE))
+        if ext != ".png":
+            assert out_pt.read_bytes() == out_jx.read_bytes()
+    with pytest.raises(ValueError, match="x.gif"):
+        pt_shot.process_screenshot(_Replay(dets), IMAGE, str(tmp_path / "r.json"),
+                                   output_image=str(tmp_path / "x.gif"), use_llm_fallback=False)
+    asked = []
+    monkeypatch.setattr(pt_llm, "query_vision_llm", lambda c, k, **kw: asked.append(k) or {})
+    monkeypatch.setattr(jax_llm, "query_vision_llm", lambda c, k, **kw: asked.append(k) or {})
+    for shot in (pt_shot, jax_shot):
+        shot.process_screenshot(_Replay(dets), IMAGE, str(tmp_path / "l.json"),
+                                output_image=None, use_llm_fallback=True)
+    assert len(asked) == 2 and asked[0] == asked[1] and asked[0]
+
+
+def test_cli_shot_on_cpu_matches_jax(pipelines_320, tmp_path, capsys, monkeypatch):
     """The port's CLI at imgsz 320, f32, with its default OCR pass, against JAX
     process_screenshot with the JAX CLI's default OCR engine; and with
-    --no-ocr against JAX without OCR."""
+    --no-ocr against JAX without OCR. With no --output-image the CLI writes
+    poker_labeled.png in the working directory, as the JAX CLI does: the
+    JAX package's annotated image, pixel for pixel."""
+    import cv2
+
     from manual_yolo_tpu.runtime.ocr import default_ocr_engine
     from manual_yolo_tpu_torch.cli import shot as cli
 
-    jx = jax_shot.load_fused_pipeline(DET, CLS, imgsz=320, conf=0.5, compute_dtype="float32")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("OPENAI_API_KEY", raising=False)
+    _, jx = pipelines_320
     jx_ocr = default_ocr_engine()
     jx_ocr.MIN_BUCKET = 8  # one batch bucket: fewer JAX recognizer compiles
     for flags, ocr in (([], jx_ocr), (["--no-ocr", "--no-llm"], None)):
@@ -177,12 +240,17 @@ def test_cli_shot_on_cpu_matches_jax(tmp_path, capsys):
                        "--imgsz", "320", "--dtype", "float32", *flags])
         assert rc == 0
         got = json.loads(out.read_text())
-        assert json.loads(capsys.readouterr().out) == got
-        ref = jax_shot.process_screenshot(jx, IMAGE, str(tmp_path / "jx.json"), output_image=None,
+        captured = capsys.readouterr()
+        assert json.loads(captured.out) == got
+        assert captured.err.strip() == f"saved {out} and poker_labeled.png"
+        ref = jax_shot.process_screenshot(jx, IMAGE, str(tmp_path / "jx.json"),
+                                          output_image=str(tmp_path / "jx.png"),
                                           ocr=ocr, use_llm_fallback=False)
         got.pop("time"), ref.pop("time")
         assert got == ref
         assert any(v["name"] for v in got["villains"]) == (ocr is not None)
+        np.testing.assert_array_equal(cv2.imread(str(tmp_path / "poker_labeled.png")),
+                                      cv2.imread(str(tmp_path / "jx.png")))
 
 
 # --- PNG reader ------------------------------------------------------------
