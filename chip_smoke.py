@@ -159,9 +159,30 @@ Phases, in order; any failure raises and the exit code is not 0:
      latency and the screenshot latency with OCR with the host clock, the
      frame's device time by kernel, and one trace of the screenshot with OCR
      (device busy and idle share, the OCR pass's share, recognizer calls per
-     kind, the host time of the beam and rescore); print them and a JSON
-     line listing every kernel with its bound and its launches on each path;
- 17. print the device line last.
+     kind, the host time of the beam and rescore); print them, and after
+     17 a JSON line listing every kernel with its bound and its launches on
+     each path;
+ 17. OCR training and evaluation: cli.train_ocr at the CLI's widths (CRNN
+     hidden 256, width 256, img_h 32, batch 64, f32; the pool cut to 2048
+     renders, 120 steps, an eval every 40): the pool's host ms per sample,
+     the step and samples/s after the first eval, the CTC loss and exact
+     match at each eval, one profiled step (``train_ocr``); the checkpoint
+     equal to the saved model in f16, through load_params and an OCREngine
+     reading the example's fields; cli.train_craft at its defaults (256x256,
+     batch 8, bf16; 256 scenes, 40 steps, an eval every 20): step ms, MSE
+     and line F1 per eval, the running statistics moved, read_region of the
+     villain panel with the checkpoint, one profiled step
+     (``train_craft``); three f32 steps of each card against CPU from the
+     same parameters and batches (``train_ocr_f32_vs_cpu``,
+     ``train_craft_f32_vs_cpu``, batches 16 and 2, tolerances at
+     OCR_LOSS0_RTOL below);
+     cli.eval_ocr and cli.eval_craft on a stand-in labelled set written here
+     (the example as a JPEG under four split stems, labels of poker_detector_n,
+     labels.json in data/ocr_real's schema): the card's rows and scores equal
+     the CPU's, confidences within 1e-3, times printed (``eval_ocr``,
+     ``eval_craft``); these phases reach no NMS kernel, and run after the
+     timings, whose kernel trace they would cost events;
+ 18. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
 result is printed.
@@ -187,6 +208,7 @@ import numpy as np
 import torch
 
 import manual_yolo_tpu_torch
+from manual_yolo_tpu_torch.core.device import full_f32
 from manual_yolo_tpu_torch.game import taxonomy
 from manual_yolo_tpu_torch.models import yolov8
 from manual_yolo_tpu_torch.ops import ctc as ctc_ops
@@ -364,49 +386,55 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fns: dict, reps: int = 50) -> dict:
+def kernel_ms(fns: dict, reps: int = 50, attempts: int = 3) -> dict:
     """{name: mean device time of the NMS kernel per launch of fns[name]}, from
     one torch.profiler trace. Each name's launches run inside a record_function
     range of their own, 20 ms apart, after one warm-up launch of each outside
     any range; a kernel event belongs to the range that starts last before
-    it, and every range must hold all ``reps`` launches."""
+    it, and every range must hold all ``reps`` launches. The card's host
+    sometimes drops a few of the first range's kernel events: a trace that
+    misses any is taken again, up to ``attempts`` times, and each miss is
+    printed."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the first launches after the trace starts can go unrecorded: begin
-        # with other device work, launches of the kernel outside any range
-        # (left out below) and a pause
-        torch.ones(1, device="cuda").add_(1)
-        for fn in fns.values():
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.05)
-        for name, fn in fns.items():
-            with record_function(f"nms_keep_timed/{name}"):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            time.sleep(0.02)
-    events = prof.events()
-    ranges = sorted((e.time_range.start, e.name.split("/", 1)[1]) for e in events
-                    if e.name.startswith("nms_keep_timed/")
-                    and not str(e.device_type).endswith("CUDA"))
-    if [name for _, name in ranges] != list(fns):
-        fail(f"the profiler trace holds the ranges {ranges}, not one for each of {list(fns)}")
-    spans = {name: [] for name in fns}
-    for e in events:
-        if str(e.device_type).endswith("CUDA") and "nms_keep_kernel" in e.name:
-            # kernel and host clocks agree within microseconds; the ranges are 20 ms apart
-            owner = [name for start, name in ranges if start <= e.time_range.start + 1000]
-            if owner:  # else a warm-up launch, 50 ms before the first range
-                spans[owner[-1]].append(e.time_range.elapsed_us())
-    counts = {name: len(us) for name, us in spans.items()}
-    if set(counts.values()) != {reps}:
-        fail(f"the profiler trace holds {counts} nms_keep_kernel events, not {reps} per range")
-    return {name: sum(us) / reps / 1e3 for name, us in spans.items()}
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # the first launches after the trace starts can go unrecorded: begin
+            # with other device work, launches of the kernel outside any range
+            # (left out below) and a pause
+            torch.ones(1, device="cuda").add_(1)
+            for fn in fns.values():
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for name, fn in fns.items():
+                with record_function(f"nms_keep_timed/{name}"):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                time.sleep(0.02)
+        events = prof.events()
+        ranges = sorted((e.time_range.start, e.name.split("/", 1)[1]) for e in events
+                        if e.name.startswith("nms_keep_timed/")
+                        and not str(e.device_type).endswith("CUDA"))
+        if [name for _, name in ranges] != list(fns):
+            fail(f"the profiler trace holds the ranges {ranges}, not one for each of {list(fns)}")
+        spans = {name: [] for name in fns}
+        for e in events:
+            if str(e.device_type).endswith("CUDA") and "nms_keep_kernel" in e.name:
+                # kernel and host clocks agree within microseconds; the ranges are 20 ms apart
+                owner = [name for start, name in ranges if start <= e.time_range.start + 1000]
+                if owner:  # else a warm-up launch, 50 ms before the first range
+                    spans[owner[-1]].append(e.time_range.elapsed_us())
+        counts = {name: len(us) for name, us in spans.items()}
+        if set(counts.values()) == {reps}:
+            return {name: sum(us) / reps / 1e3 for name, us in spans.items()}
+        print(f"kernel_ms: trace {attempt + 1} holds {counts} nms_keep_kernel events, "
+              f"not {reps} per range; tracing again")
+    fail(f"{attempts} profiler traces each missed nms_keep_kernel events")
 
 
 def bound(boxes: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor):
@@ -2329,6 +2357,385 @@ def unlabel_phase(root: str, tmp: str) -> None:
                                   "equal_encode_jpeg": True, "wall_s": wall_s}}))
 
 
+# OCR training and evaluation (train/ocr.py, train/craft.py, cli/eval_*.py).
+# The trainers run as their CLIs call them, at the CLIs' widths, cut in
+# pool size and steps (PERF.md section 4)
+OCR_TRAIN = dict(hidden=256, width=256, img_h=32, batch=64, pool=2048, steps=120, eval_every=40)
+CRAFT_TRAIN = dict(size=256, batch=8, pool=256, steps=40, eval_every=20)
+OCR_EVAL_SPLITS = ("test", "valid", "test2", "train_fit", "train_holdout")
+# three f32 steps, card against CPU, from the same parameters and batches.
+# The first gradient on each device is held against the CPU's f64 one, each
+# leaf's error taken relative to its largest: the card's worst leaf at most
+# twice the CPU's worst, or 1e-4 (CRAFT's f32 gradients are ill-conditioned:
+# the CPU's own f32 lies up to 12% of a leaf's largest from f64, at ext.0,
+# and which leaves the two devices round worse differs). The first
+# loss within 1e-5 relative, the later within 1e-3; then AdamW moves an
+# element whose gradient the devices round apart near 0 by up to lr each
+# step: every parameter within 2 x the summed learning rates (and 1e-6 for
+# the weights' f32 rounding), the running statistics within 1e-2 relative
+OCR_LOSS0_RTOL, OCR_LOSS_RTOL, OCR_GRAD_FLOOR, OCR_STAT_RTOL = 1e-5, 1e-3, 1e-4, 1e-2
+# the batches of those steps: the CPU side runs them too, and an f64 gradient
+OCR_F32_BATCH, CRAFT_F32_BATCH = 16, 2
+
+
+def write_ocr_eval_set(root: str) -> str:
+    """A stand-in for the reference's labelled OCR set: the example saved as a
+    JPEG (encode_jpeg, quality 95) under test/, valid/ and two train/ stems,
+    one on each side of eval_ocr's md5 holdout; YOLO labels of the CPU f32
+    detections of poker_detector_n at conf 0.25 on the decoded JPEG; a
+    data.yaml of the taxonomy's names; labels.json in data/ocr_real's
+    schema (an item per text-field row, and a "test2" item at the game id
+    box, eval_ocr.TEST2 being the example PNG). -> labels.json's path."""
+    from manual_yolo_tpu_torch.cli import eval_craft, eval_ocr
+
+    data = jpeg.encode_jpeg(imread_bgr(IMAGE), 95)
+    frame, _ = native.jpeg_decode(data)
+    engine = DetectorEngine.from_npz(DETECTOR_N, imgsz=IMGSZ, conf=0.25, compute_dtype="float32",
+                                     device="cpu")
+    dets = engine.detect_to_list(frame)
+    h, w = frame.shape[:2]
+    lines = [f"{d['class_id']} {(d['x1'] + d['x2']) / 2 / w:.6f} {(d['y1'] + d['y2']) / 2 / h:.6f} "
+             f"{(d['x2'] - d['x1']) / w:.6f} {(d['y2'] - d['y1']) / h:.6f}\n" for d in dets]
+    cands = [f"ex_train{i}" for i in range(16)]
+    stems = {"test": ["ex_test"], "valid": ["ex_valid"],
+             "train": [next(c for c in cands if eval_ocr._train_holdout(c)),
+                       next(c for c in cands if not eval_ocr._train_holdout(c))]}
+    items = []
+    for split, names in stems.items():
+        os.makedirs(os.path.join(root, split, "images"), exist_ok=True)
+        os.makedirs(os.path.join(root, split, "labels"), exist_ok=True)
+        for stem in names:
+            with open(os.path.join(root, split, "images", stem + ".jpg"), "wb") as f:
+                f.write(data)
+            with open(os.path.join(root, split, "labels", stem + ".txt"), "w") as f:
+                f.writelines(lines)
+            for row, d in enumerate(dets):
+                if eval_craft._is_text(d["class_name"]):
+                    kind = field_kind(d["class_name"])
+                    text = {"numeric": "1,250", "name": "Player_1", "game_id": "232025507"}.get(kind, "A")
+                    items.append({"src": f"{split}/{stem}", "row": row, "class": d["class_name"],
+                                  "text": text})
+    items.append({"src": "test2", "bbox": GAME_ID_BOX, "class": "game_id",
+                  "text": "Game ID : 232025507"})
+    with open(os.path.join(root, "data.yaml"), "w") as f:
+        f.write(f"nc: {len(taxonomy.CLASS_NAMES)}\nnames:\n")
+        f.writelines(f"  - {n}\n" for n in taxonomy.CLASS_NAMES)
+    labels = os.path.join(root, "labels.json")
+    with open(labels, "w") as f:
+        json.dump({"items": items}, f)
+    return labels
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaf_paths(tree[k], f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{prefix}.{i}")
+    else:
+        yield prefix, np.asarray(tree, np.float64)
+
+
+def compare_f32_steps(tag: str, card: list, cpu: list, ref64: dict, lrs: list) -> dict:
+    """Hold three f32 steps on the card against the CPU's: ``card`` and
+    ``cpu`` are lists of (loss, first-step gradient tree or None, parameter
+    tree after the step), ``ref64`` the first gradient in f64 on the CPU.
+    -> the measured differences."""
+    out = {"loss_rel": [], "grad_err_card": 0.0, "grad_err_cpu": 0.0, "grad_worst_leaf": None,
+           "param_max": [], "param_median": [], "stat_rel_max": []}
+    for k, ((l_c, g_c, p_c), (l_r, g_r, p_r)) in enumerate(zip(card, cpu)):
+        rel = abs(l_c - l_r) / max(abs(l_r), 1e-12)
+        out["loss_rel"].append(rel)
+        if rel > (OCR_LOSS0_RTOL if k == 0 else OCR_LOSS_RTOL):
+            fail(f"{tag} step {k + 1}: loss {l_c} on the card, {l_r} on the CPU")
+        if g_c is not None:
+            for (path, a), (_, b), (_, r) in zip(_leaf_paths(g_c), _leaf_paths(g_r), _leaf_paths(ref64)):
+                scale = max(float(np.abs(r).max()), 1e-30)
+                e_card = float(np.abs(a - r).max()) / scale
+                e_cpu = float(np.abs(b - r).max()) / scale
+                if e_card > out["grad_err_card"]:
+                    out["grad_err_card"], out["grad_worst_leaf"] = e_card, path
+                out["grad_err_cpu"] = max(out["grad_err_cpu"], e_cpu)
+            if out["grad_err_card"] > max(2 * out["grad_err_cpu"], OCR_GRAD_FLOOR):
+                fail(f"{tag} first gradient: the card's {out['grad_err_card']} of a leaf's "
+                     f"largest from f64 (at {out['grad_worst_leaf']}), the CPU's "
+                     f"{out['grad_err_cpu']}")
+        diffs, stat, worst = [], 0.0, (0.0, None)
+        for (path, a), (_, b) in zip(_leaf_paths(p_c), _leaf_paths(p_r)):
+            if path.endswith(".mean") or path.endswith(".var"):
+                stat = max(stat, float((np.abs(a - b) / (1 + np.abs(b))).max()))
+            else:
+                diffs.append(np.abs(a - b).reshape(-1))
+                if diffs[-1].max() >= worst[0]:
+                    worst = (float(diffs[-1].max()), path)
+        d = np.concatenate(diffs)
+        out["param_max"].append(float(d.max()))
+        out["param_max_leaf"] = worst[1]
+        out["param_median"].append(float(np.median(d)))
+        out["stat_rel_max"].append(stat)
+        if d.max() > 2 * sum(lrs[:k + 1]) + 1e-6 or stat > OCR_STAT_RTOL:
+            fail(f"{tag} step {k + 1}: parameters {d.max()} apart (at {worst[1]}; "
+                 f"{int((d > 2 * sum(lrs[:k + 1])).sum())} of {d.size} elements over the "
+                 f"bound), running statistics {stat} relative")
+    return out
+
+
+def ocr_first_grads(device, dtype, model_params, batch):
+    """The CRNN's first gradient tree in ``dtype`` on ``device``, computed as
+    a train step computes it (``train.ocr.step_numerics``)."""
+    from manual_yolo_tpu_torch.models import crnn
+    from manual_yolo_tpu_torch.train import ocr as ocr_train
+
+    model = crnn.for_training(crnn.from_jax_params(model_params, "cpu")).to(device, dtype).train()
+    params = [p for p in model.parameters() if p.requires_grad]
+    x, lab, lp = (torch.from_numpy(a).to(device) for a in batch)
+    with ocr_train.step_numerics(torch.device(device)):
+        loss = ocr_train.ctc_loss(model(x.to(dtype)[..., None]), lab, lp).mean()
+        g = torch.autograd.grad(loss, params)
+    named = dict(zip([n for n, p in model.named_parameters() if p.requires_grad], g))
+    clone = crnn.CRNN(model.lstm.hidden_size).double()
+    state = {n: (named[n] if n in named else t).detach().cpu().double()
+             for n, t in model.state_dict().items()}
+    clone.load_state_dict(state)
+    return crnn.to_jax_params(clone)
+
+
+def ocr_f32_steps(device, params0, batches, lrs) -> list:
+    """Three f32 CRNN steps from ``params0`` on ``device``: [(loss, first
+    gradient tree or None, parameters)]."""
+    from manual_yolo_tpu_torch.models import crnn
+    from manual_yolo_tpu_torch.train import ocr as ocr_train
+    from manual_yolo_tpu_torch.train.optim import adamw
+
+    model = crnn.for_training(crnn.from_jax_params(params0, device).train())
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = adamw(params, ocr_train.WEIGHT_DECAY)
+    out = []
+    for k, batch in enumerate(batches):
+        x, lab, lp = (torch.from_numpy(a).to(device) for a in batch)
+        grads = ocr_first_grads(device, torch.float32, params0, batch) if k == 0 else None
+        loss = ocr_train.ocr_step(model, opt, params, x, lab, lp, lrs[k])
+        out.append((float(loss), grads, crnn.to_jax_params(model)))
+    return out
+
+
+def craft_first_grads(device, dtype, params0, batch):
+    """CRAFT's first gradient tree (f32 compute) in ``dtype`` on ``device``."""
+    from manual_yolo_tpu_torch.models import craft
+
+    model = craft.from_jax_params(params0, "cpu").to(device, dtype).train()
+    model.compute_dtype = dtype
+    params = list(model.parameters())
+    x, y = (torch.from_numpy(a).to(device, dtype) for a in batch)
+    with full_f32():
+        g = torch.autograd.grad(torch.mean((model(x) - y) ** 2), params)
+    for _, m in craft._convs(model):
+        m.pending = None
+    return {n: t.detach().double().cpu().numpy() for (n, _), t in zip(model.named_parameters(), g)}
+
+
+def craft_f32_steps(device, params0, batches, lrs) -> list:
+    """Three f32 CRAFT steps from ``params0`` on ``device``."""
+    from manual_yolo_tpu_torch.models import craft
+    from manual_yolo_tpu_torch.train import craft as craft_train
+    from manual_yolo_tpu_torch.train.optim import adamw
+
+    model = craft.from_jax_params(params0, device)
+    params = list(model.parameters())
+    opt = adamw(params, craft_train.WEIGHT_DECAY)
+    out = []
+    for k, (x, y) in enumerate(batches):
+        grads = craft_first_grads(device, torch.float32, params0, (x, y)) if k == 0 else None
+        xd, yd = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+        loss = craft_train.craft_step(model, opt, params, xd, yd, lrs[k])
+        out.append((float(loss), grads, craft.to_jax_params(model)))
+    return out
+
+
+def train_ocr_phase(dev, tmp: str, frame_img: np.ndarray, cpu_dets) -> None:
+    """cli.train_ocr at its widths (OCR_TRAIN), cut in pool and steps; the
+    checkpoint through load_params and OCREngine; a profiled step; three f32
+    steps card against CPU."""
+    from manual_yolo_tpu_torch.cli import train_ocr as train_ocr_cli
+    from manual_yolo_tpu_torch.core.serialization import load_params
+    from manual_yolo_tpu_torch.models import crnn
+    from manual_yolo_tpu_torch.train import ocr as ocr_train
+    from manual_yolo_tpu_torch.train.optim import adamw, warmup_cosine
+
+    c = OCR_TRAIN
+    out = os.path.join(tmp, "ocr_run", "crnn.npz")
+    results, saved = [], []
+    with wrapped(ocr_train, "train_ocr",
+                 lambda f: lambda cfg, log=print: results.append(f(cfg, log)) or results[-1]), \
+         wrapped(ocr_train, "save_params",
+                 lambda f: lambda path, params, meta=None: (saved.append(params), f(path, params, meta))):
+        rc = train_ocr_cli.main([
+            "--out", out, "--steps", str(c["steps"]), "--batch", str(c["batch"]),
+            "--width", str(c["width"]), "--img-h", str(c["img_h"]), "--hidden", str(c["hidden"]),
+            "--pool-size", str(c["pool"]), "--eval-every", str(c["eval_every"])])
+    res = results[0] if results else {}
+    hist = res.get("history", [])
+    if rc != 0 or len(hist) != c["steps"] // c["eval_every"] or not saved:
+        fail(f"cli.train_ocr returned {rc} with history {hist}")
+    if not all(np.isfinite(h["ctc"]) for h in hist):
+        fail(f"the CTC loss is not finite: {[h['ctc'] for h in hist]}")
+    steady = (hist[-1]["train_s"] - hist[0]["train_s"]) / (c["steps"] - c["eval_every"])
+    params, meta = load_params(out)
+    if meta.get("hidden") != c["hidden"] or meta.get("width") != c["width"] or meta.get("img_h") != c["img_h"]:
+        fail(f"the checkpoint's meta is {meta}")
+    # the written file is to_jax_params of the model when it was saved, in f16
+    for (path, a), (_, b) in zip(_leaf_paths(params), _leaf_paths(saved[-1])):
+        if np.abs(a - b.astype(np.float16).astype(np.float32)).max() > 0:
+            fail(f"the checkpoint's {path} is not the saved model's in f16")
+    engine = OCREngine.from_npz(out, device=dev)
+    crops, names = ocr_crops(frame_img, cpu_dets)
+    reads = engine.read_fields_conf(crops, names)
+    if engine.errors or len(reads) != len(crops):
+        fail(f"the trained checkpoint's OCREngine caught {engine.errors} errors")
+    # one profiled step at the trainer's shapes
+    cfg = ocr_train.OCRTrainConfig(width=c["width"], hidden=c["hidden"], batch=c["batch"])
+    pool = ocr_train.build_pool(np.random.default_rng(1), cfg, 3 * max(c["batch"], OCR_F32_BATCH))
+    imgs = (np.clip(pool[0][..., 0] * 255 + 0.5, 0, 255).astype(np.uint8)).astype(np.float32) / 255
+    model = crnn.for_training(crnn.from_jax_params(crnn.init_params(torch.Generator().manual_seed(0),
+                                                                    c["hidden"]), dev).train())
+    tparams = [p for p in model.parameters() if p.requires_grad]
+    opt = adamw(tparams, ocr_train.WEIGHT_DECAY)
+    x, lab, lp = (torch.from_numpy(a[:c["batch"]]).to(dev) for a in (imgs, pool[1], pool[2]))
+    prof = trace_once(lambda: ocr_train.ocr_step(model, opt, tparams, x, lab, lp, 1e-4), "ocr_step")
+    print(json.dumps({"train_ocr": {
+        **c, "dtype": "float32", "pool_build_s": res["pool_s"],
+        "pool_build_host_ms_per_sample": res["pool_s"] / c["pool"] * 1e3,
+        "step_ms_after_warmup": steady * 1e3, "samples_per_s": c["batch"] / steady,
+        "ctc": [h["ctc"] for h in hist], "exact_match": [h["exact"] for h in hist],
+        "best_exact": res["best_exact"], "wall_s": res["wall_s"],
+        "checkpoint_reads": [r[0] for r in reads][:8], "step_profile": prof}}))
+    # three f32 steps on the card and the CPU, same parameters and batches
+    sched = warmup_cosine(cfg.lr * 0.05, cfg.lr, 24, 120, cfg.lr * 0.02)
+    lrs = [sched(k) for k in range(3)]
+    params0 = crnn.init_params(torch.Generator().manual_seed(0), c["hidden"])
+    b = OCR_F32_BATCH
+    batches = [(imgs[k * b:(k + 1) * b], pool[1][k * b:(k + 1) * b], pool[2][k * b:(k + 1) * b])
+               for k in range(3)]
+    card = ocr_f32_steps(dev, params0, batches, lrs)
+    cpu = ocr_f32_steps(torch.device("cpu"), params0, batches, lrs)
+    ref64 = ocr_first_grads("cpu", torch.float64, params0, batches[0])
+    print(json.dumps({"train_ocr_f32_vs_cpu": {"batch": b, "lrs": lrs,
+                                               **compare_f32_steps("train_ocr", card, cpu, ref64, lrs)}}))
+
+
+def train_craft_phase(dev, tmp: str, frame_img: np.ndarray) -> None:
+    """cli.train_craft at its defaults (256x256, batch 8, bf16), cut in pool
+    and steps; the running statistics moved; the checkpoint drives
+    read_region; a profiled step; three f32 steps card against CPU."""
+    from manual_yolo_tpu_torch.cli import train_craft as train_craft_cli
+    from manual_yolo_tpu_torch.core.serialization import load_params
+    from manual_yolo_tpu_torch.models import craft
+    from manual_yolo_tpu_torch.train import craft as craft_train
+    from manual_yolo_tpu_torch.train.optim import adamw, warmup_cosine
+
+    c = CRAFT_TRAIN
+    out = os.path.join(tmp, "craft_run", "craft.npz")
+    results = []
+    with wrapped(craft_train, "train_craft",
+                 lambda f: lambda cfg, log=print: results.append(f(cfg, log)) or results[-1]):
+        rc = train_craft_cli.main([
+            "--out", out, "--steps", str(c["steps"]), "--batch", str(c["batch"]),
+            "--size", str(c["size"]), "--pool-size", str(c["pool"]),
+            "--eval-every", str(c["eval_every"])])
+    res = results[0] if results else {}
+    hist = res.get("history", [])
+    if rc != 0 or len(hist) != c["steps"] // c["eval_every"] or not all(np.isfinite(h["mse"]) for h in hist):
+        fail(f"cli.train_craft returned {rc} with history {hist}")
+    params, meta = load_params(out)
+    moved = {p: float(np.abs(a - (0.0 if p.endswith(".mean") else 1.0)).max())
+             for p, a in _leaf_paths(params) if p.endswith(".mean") or p.endswith(".var")}
+    if meta.get("size") != c["size"] or min(moved.values()) <= 0:
+        fail(f"the checkpoint's meta is {meta}, or a running statistic did not move: {moved}")
+    engine = OCREngine.from_npz(os.path.join(REPO, "weights", "crnn_real_a.npz"),
+                                text_detector=out, device=dev)
+    x1, y1, x2, y2 = PANEL_BOX
+    lines = engine.read_region(frame_img[y1:y2, x1:x2], "generic")
+    steady = (hist[-1]["train_s"] - hist[0]["train_s"]) / (c["steps"] - c["eval_every"])
+    cfg = craft_train.CraftTrainConfig(size=c["size"], pool_size=3 * c["batch"])
+    imgs, heats, _ = craft_train.build_pool(np.random.default_rng(2), cfg)
+    q = lambda a: np.clip(a * 255 + 0.5, 0, 255).astype(np.uint8).astype(np.float32) / 255  # noqa: E731
+    imgs, heats = q(imgs), q(heats)
+    model = craft.from_jax_params(craft.init_params(torch.Generator().manual_seed(0)), dev)
+    model.compute_dtype = torch.bfloat16
+    tparams = list(model.parameters())
+    opt = adamw(tparams, craft_train.WEIGHT_DECAY)
+    xb, yb = torch.from_numpy(imgs[:c["batch"]]).to(dev), torch.from_numpy(heats[:c["batch"]]).to(dev)
+    prof = trace_once(lambda: craft_train.craft_step(model, opt, tparams, xb, yb, 1e-5), "craft_step")
+    print(json.dumps({"train_craft": {
+        **c, "dtype": "bfloat16", "pool_build_s": res["pool_s"],
+        "step_ms_after_warmup": steady * 1e3, "scenes_per_s": c["batch"] / steady,
+        "mse": [h["mse"] for h in hist], "line_f1": [h["line_f1"] for h in hist],
+        "best_line_f1": res["best_line_f1"], "wall_s": res["wall_s"],
+        "running_stats_moved_min": min(moved.values()), "read_region_lines": len(lines),
+        "step_profile": prof}}))
+    sched = warmup_cosine(5e-4 * 0.05, 5e-4, 8, 40, 5e-4 * 0.05)
+    lrs = [sched(k) for k in range(3)]
+    params0 = craft.init_params(torch.Generator().manual_seed(0))
+    b = CRAFT_F32_BATCH
+    batches = [(imgs[k * b:(k + 1) * b], heats[k * b:(k + 1) * b]) for k in range(3)]
+    card = craft_f32_steps(dev, params0, batches, lrs)
+    cpu = craft_f32_steps(torch.device("cpu"), params0, batches, lrs)
+    ref64 = craft_first_grads("cpu", torch.float64, params0, batches[0])
+    print(json.dumps({"train_craft_f32_vs_cpu": {"batch": b, "lrs": lrs,
+                                                 **compare_f32_steps("train_craft", card, cpu, ref64,
+                                                                     lrs)}}))
+
+
+def ocr_eval_phase(dev, tmp: str, cpu_ocr) -> None:
+    """cli.eval_ocr and cli.eval_craft on the stand-in set, on the card and the
+    CPU: the same rows (confidences within OCR_CONF_TOL) and scores."""
+    from manual_yolo_tpu_torch.cli import eval_craft, eval_ocr
+
+    root = os.path.join(tmp, "ocr_eval")
+    labels = write_ocr_eval_set(root)
+    weights = os.path.join(REPO, "weights", "craft_real.npz")
+    res, ms = {}, {}
+    with wrapped(eval_ocr, "TEST2", lambda _: IMAGE):
+        for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            engine = default_ocr_engine(device=device)
+            t0 = time.perf_counter()
+            res[name] = eval_ocr.evaluate_real(engine, labels, 0.35, splits=OCR_EVAL_SPLITS,
+                                               dataset_root=root)
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            if engine.errors:
+                fail(f"eval_ocr's engine caught {engine.errors} errors on the {name}")
+        rc = eval_ocr.main(["--labels", labels, "--dataset-root", root, "--splits",
+                            ",".join(OCR_EVAL_SPLITS), "--sweep-gates"])
+    rows_c, rows_r = res["card"].pop("rows"), res["cpu"].pop("rows")
+    if rc != 0 or len(rows_c) != len(rows_r) or len(rows_r) < 20:
+        fail(f"cli.eval_ocr returned {rc}; {len(rows_c)} rows on the card, {len(rows_r)} on the CPU")
+    for a, b in zip(rows_c, rows_r):
+        if {k: v for k, v in a.items() if k != "conf"} != {k: v for k, v in b.items() if k != "conf"} \
+                or abs(a["conf"] - b["conf"]) > OCR_CONF_TOL:
+            fail(f"eval_ocr row on the card {a}, on the CPU {b}")
+    if res["card"]["per_kind"] != res["cpu"]["per_kind"] or \
+            eval_ocr.gate_sweep(rows_c) != eval_ocr.gate_sweep(rows_r):
+        fail("eval_ocr's scores or gate sweep differ card against CPU")
+    craft_res, craft_ms = {}, {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        craft_res[name] = eval_craft.evaluate(weights, splits=("test", "valid"), device=device,
+                                              dataset_root=root)
+        craft_ms[name] = (time.perf_counter() - t0) * 1e3
+    if craft_res["card"] != craft_res["cpu"] or craft_res["cpu"]["regions"] < 10:
+        fail(f"eval_craft on the card {craft_res['card']}, on the CPU {craft_res['cpu']}")
+    if eval_craft.main(["--weights", weights, "--splits", "test", "--dataset-root", root]) != 0:
+        fail("cli.eval_craft failed")
+    print(json.dumps({"eval_ocr": {"rows": len(rows_r), "splits": OCR_EVAL_SPLITS,
+                                   "exact_match": res["card"]["exact_match"],
+                                   "per_kind": res["card"]["per_kind"],
+                                   "ms_card": ms["card"], "ms_cpu": ms["cpu"],
+                                   "rows_equal_cpu": True},
+                      "eval_craft": {**craft_res["card"], "ms_card": craft_ms["card"],
+                                     "ms_cpu": craft_ms["cpu"], "equal_cpu": True}}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2646,6 +3053,16 @@ def main() -> int:
                                             ocr=TimedOCR(gpu_ocr), use_llm_fallback=False))
     if gpu_ocr.errors:
         fail(f"OCR caught {gpu_ocr.errors} errors on the card while timed")
+
+    # 17. OCR training and evaluation: cli.train_ocr, cli.train_craft, each
+    # with three f32 steps against the CPU, and cli.eval_ocr / cli.eval_craft
+    # on a stand-in labelled set, card against CPU. After the timings: their
+    # two profiled steps would cost the kernel's trace events (many traces
+    # in one process lose some on that host)
+    ocr_dets = dataclasses.replace(cpu, conf=0.25).process_frame(frame_img)
+    train_ocr_phase(dev, tmp, frame_img, ocr_dets)
+    train_craft_phase(dev, tmp, frame_img)
+    ocr_eval_phase(dev, tmp, cpu_ocr)
     tmp_dir.cleanup()
     print(json.dumps({"nms_keep_timing": {
         "kernel_ms": ms, "source": "torch.profiler",
@@ -2669,7 +3086,7 @@ def main() -> int:
         "library_ms": None,
     }]}))
 
-    # 17. the device line
+    # 18. the device line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -59,3 +59,15 @@ def full_f32():
 def precision_for(dtype: torch.dtype):
     """``full_f32()`` for an f32 computation, else a context that does nothing."""
     return full_f32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def cudnn_enabled(enabled: bool):
+    """Set ``torch.backends.cudnn.enabled`` inside (restored after), leaving
+    its other flags (TF32, benchmark) as they are."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved

@@ -1,7 +1,6 @@
 """CRAFT text detector (region/affinity heatmaps) as a PyTorch module.
 
-Counterpart of ``manual_yolo_tpu/models/craft.py`` (inference only): a
-VGG16-BN feature extractor, a dilated stride-32 extension, U-Net merges with
+Counterpart of ``manual_yolo_tpu/models/craft.py``: a VGG16-BN feature extractor, a dilated stride-32 extension, U-Net merges with
 the stride 16, 8, 4 and 2 features, and a 2-channel head (region, affinity)
 at stride 2.
 
@@ -14,22 +13,37 @@ at stride 2.
   * ``text_regions_from_scores`` labels 4-connected components in numpy,
     numbered in raster order of their first pixel as
     ``cv2.connectedComponents`` numbers them.
+
+Training (``train/craft.py``), as the JAX package computes it:
+
+  * ``compute_dtype`` bf16 is JAX's ``_conv`` in bf16: input and weight in
+    bf16, the conv's output rounded to bf16, then f32 for the bias or BN and
+    the ReLU; pools, resizes and concatenations stay f32;
+  * in train mode BN normalises with the batch mean and biased variance
+    and keeps ``(1 - m) * old + m * batch`` (``BN_MOMENTUM``) per layer in
+    ``pending``; ``apply_bn_updates`` writes them into the running stats
+    after the optimizer step. ``nn.BatchNorm2d`` is not used: it keeps the
+    unbiased variance;
+  * ``init_params`` draws the JAX initial distributions from a
+    ``torch.Generator``; ``to_jax_params`` is ``from_jax_params``'s inverse.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from manual_yolo_tpu_torch.core.device import full_f32
+from manual_yolo_tpu_torch.core.device import precision_for
 from manual_yolo_tpu_torch.core.serialization import load_params
 from manual_yolo_tpu_torch.core.weights import conv_hwio_to_oihw
 
 BN_EPS = 1e-5  # torchvision VGG BN default
+BN_MOMENTUM = 0.1  # torchvision BatchNorm2d default
 
 # VGG16-BN conv plan: (out_channels, pool_before)
 _VGG_PLAN = [
@@ -46,18 +60,36 @@ class ConvBN(nn.Module):
 
     def __init__(self, cin: int, cout: int, k: int, dilation: int = 1, bn: bool = True):
         super().__init__()
-        pad = ((k - 1) * dilation) // 2
-        self.conv = nn.Conv2d(cin, cout, k, padding=pad, dilation=dilation, bias=not bn)
+        self.pad = ((k - 1) * dilation) // 2
+        self.dilation = dilation
+        self.conv = nn.Conv2d(cin, cout, k, padding=self.pad, dilation=dilation, bias=not bn)
         self.bn = bn
         if bn:
-            for name in ("gamma", "beta", "mean", "var"):
-                self.register_buffer(name, torch.zeros(cout))
+            self.gamma = nn.Parameter(torch.ones(cout))
+            self.beta = nn.Parameter(torch.zeros(cout))
+            self.register_buffer("mean", torch.zeros(cout))
+            self.register_buffer("var", torch.ones(cout))
+        self.pending: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
-    def forward(self, x: torch.Tensor, act: bool = True) -> torch.Tensor:
-        y = self.conv(x)
+    def forward(self, x: torch.Tensor, act: bool = True,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        y = F.conv2d(x.to(dtype), self.conv.weight.to(dtype), None,
+                     padding=self.pad, dilation=self.dilation)
+        if dtype == torch.bfloat16:
+            y = y.float()
         if self.bn:
-            scale = self.gamma * torch.rsqrt(self.var + BN_EPS)
-            y = (y - self.mean[:, None, None]) * scale[:, None, None] + self.beta[:, None, None]
+            if self.training:
+                mean = y.mean(dim=(0, 2, 3))
+                var = (y - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+                m = BN_MOMENTUM
+                self.pending = ((1 - m) * self.mean + m * mean.detach(),
+                                (1 - m) * self.var + m * var.detach())
+            else:
+                mean, var = self.mean, self.var
+            scale = self.gamma * torch.rsqrt(var + BN_EPS)
+            y = (y - mean[:, None, None]) * scale[:, None, None] + self.beta[:, None, None]
+        else:
+            y = y + self.conv.bias[:, None, None]
         return F.relu(y) if act else y
 
 
@@ -67,13 +99,14 @@ class UpConv(nn.Module):
         self.c1 = ConvBN(cin, cmid, 1)
         self.c2 = ConvBN(cmid, cout, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c2(self.c1(x))
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.c2(self.c1(x, dtype=dtype), dtype=dtype)
 
 
 class CRAFT(nn.Module):
-    def __init__(self):
+    def __init__(self, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         vgg, cin = [], 3
         for cout, _ in _VGG_PLAN:
             vgg.append(ConvBN(cin, cout, 3))
@@ -96,22 +129,23 @@ class CRAFT(nn.Module):
         (N, H/2, W/2, 2) raw region/affinity scores, f32."""
         if x.shape[1] % 32 or x.shape[2] % 32:
             raise ValueError(f"CRAFT input sides must be multiples of 32, got {tuple(x.shape[1:3])}")
-        with full_f32():
+        dt = self.compute_dtype
+        with precision_for(dt):
             feats: List[torch.Tensor] = []
             y = x.permute(0, 3, 1, 2)
             for conv, (_, pool) in zip(self.vgg, _VGG_PLAN):
                 if pool:
                     feats.append(y)
                     y = F.max_pool2d(y, 2)
-                y = conv(y)
+                y = conv(y, dtype=dt)
             feats.append(y)  # stride 16
-            y = self.ext[1](self.ext[0](F.max_pool2d(y, 2)))  # stride 32
+            y = self.ext[1](self.ext[0](F.max_pool2d(y, 2), dtype=dt), dtype=dt)  # stride 32
             # U-Net merges with the stride 16, 8, 4, 2 features
             for up, skip in zip(self.ups, feats[::-1]):
                 y = F.interpolate(y, size=skip.shape[2:], mode="bilinear", align_corners=False)
-                y = up(torch.cat([y, skip], dim=1))
+                y = up(torch.cat([y, skip], dim=1), dtype=dt)
             for i, conv in enumerate(self.head):
-                y = conv(y, act=i < len(self.head) - 1)
+                y = conv(y, act=i < len(self.head) - 1, dtype=dt)
             return y.permute(0, 2, 3, 1)
 
 
@@ -119,27 +153,95 @@ def from_jax_params(params: Dict, device="cpu") -> CRAFT:
     """Build CRAFT from the JAX package's parameter tree (numpy leaves)."""
     model = CRAFT()
     state = {}
-
-    def put(path: str, p: Dict):
-        state[f"{path}.conv.weight"] = torch.from_numpy(
-            np.array(conv_hwio_to_oihw(np.asarray(p["w"])), np.float32, order="C"))
-        if "bn" in p:
+    f32 = lambda a: torch.from_numpy(np.array(a, np.float32, order="C"))  # noqa: E731
+    for path, m in _convs(model):
+        p = _get(params, path)
+        state[f"{path}.conv.weight"] = f32(conv_hwio_to_oihw(np.asarray(p["w"])))
+        if m.bn:
             for k in ("gamma", "beta", "mean", "var"):
-                state[f"{path}.{k}"] = torch.from_numpy(np.asarray(p["bn"][k], np.float32))
+                state[f"{path}.{k}"] = f32(p["bn"][k])
         else:
-            state[f"{path}.conv.bias"] = torch.from_numpy(np.asarray(p["b"], np.float32))
-
-    for i, p in enumerate(params["vgg"]):
-        put(f"vgg.{i}", p)
-    for i, p in enumerate(params["ext"]):
-        put(f"ext.{i}", p)
-    for i, up in enumerate(params["ups"]):
-        put(f"ups.{i}.c1", up["c1"])
-        put(f"ups.{i}.c2", up["c2"])
-    for i, p in enumerate(params["head"]):
-        put(f"head.{i}", p)
+            state[f"{path}.conv.bias"] = f32(p["b"])
     model.load_state_dict(state, strict=True)
     return model.to(device).eval()
+
+
+def _convs(model: CRAFT):
+    """(path in the JAX tree, layer) of every conv, in the JAX tree's order."""
+    for i, m in enumerate(model.vgg):
+        yield f"vgg.{i}", m
+    for i, m in enumerate(model.ext):
+        yield f"ext.{i}", m
+    for i, up in enumerate(model.ups):
+        yield f"ups.{i}.c1", up.c1
+        yield f"ups.{i}.c2", up.c2
+    for i, m in enumerate(model.head):
+        yield f"head.{i}", m
+
+
+def _keys(path: str):
+    return [int(k) if k.isdigit() else k for k in path.split(".")]
+
+
+def _get(tree, path: str):
+    for k in _keys(path):
+        tree = tree[k]
+    return tree
+
+
+def _set(tree: Dict, path: str, value) -> None:
+    *head, last = _keys(path)
+    _get(tree, ".".join(map(str, head)))[last] = value
+
+
+def _skeleton() -> Dict:
+    return {"vgg": [None] * len(_VGG_PLAN), "ext": [None] * 2,
+            "ups": [{"c1": None, "c2": None} for _ in range(4)], "head": [None] * 5}
+
+
+def init_params(gen: torch.Generator) -> Dict:
+    """A fresh parameter tree in the JAX package's layout and distributions
+    (``manual_yolo_tpu/models/craft.py::init_params``): conv weights uniform
+    in +-sqrt(6 / fan_in) (HWIO); BN gamma 1, beta 0, mean 0, var 1; the
+    last head conv's bias 0."""
+    tree = _skeleton()
+    for path, m in _convs(CRAFT()):
+        cout, cin, k, _ = m.conv.weight.shape
+        bound = math.sqrt(6.0 / (cin * k * k))
+        u = torch.rand((k, k, cin, cout), generator=gen, dtype=torch.float32)
+        p = {"w": ((u * 2.0 - 1.0) * bound).numpy()}
+        if m.bn:
+            p["bn"] = {"gamma": np.ones(cout, np.float32), "beta": np.zeros(cout, np.float32),
+                       "mean": np.zeros(cout, np.float32), "var": np.ones(cout, np.float32)}
+        else:
+            p["b"] = np.zeros(cout, np.float32)
+        _set(tree, path, p)
+    return tree
+
+
+def to_jax_params(model: CRAFT) -> Dict:
+    """The JAX package's parameter tree (numpy f32) of ``model``."""
+    np32 = lambda t: t.detach().float().cpu().numpy().copy()  # noqa: E731
+    tree = _skeleton()
+    for path, m in _convs(model):
+        p = {"w": np.ascontiguousarray(np32(m.conv.weight).transpose(2, 3, 1, 0))}
+        if m.bn:
+            p["bn"] = {k: np32(getattr(m, k)) for k in ("gamma", "beta", "mean", "var")}
+        else:
+            p["b"] = np32(m.conv.bias)
+        _set(tree, path, p)
+    return tree
+
+
+@torch.no_grad()
+def apply_bn_updates(model: CRAFT) -> None:
+    """Write the running statistics of the last train-mode forward into the
+    BN layers (the JAX trainer's ``apply_bn_updates``, after the update)."""
+    for _, m in _convs(model):
+        if m.pending is not None:
+            m.mean.copy_(m.pending[0])
+            m.var.copy_(m.pending[1])
+            m.pending = None
 
 
 def load_npz(path: str, device="cpu") -> CRAFT:

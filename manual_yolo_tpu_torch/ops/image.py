@@ -9,9 +9,9 @@ truncated to int32.
 Otsu's class statistics are cumulative sums of integer bin counts, exact on
 any device, so the card and the CPU pick the same threshold bin.
 
-Also here: ``cv_resize``, a numpy resize equal to ``cv2.resize`` on f32
-images (INTER_CUBIC and INTER_LINEAR), for the recognizer's host
-preprocessing and the CRAFT canvas; the card's host has no OpenCV.
+Also here: ``cv_resize`` and ``cv_resize_area``, numpy resizes equal to ``cv2.resize`` on f32
+images (INTER_CUBIC, INTER_LINEAR; INTER_AREA), for the recognizer's host
+preprocessing, the CRAFT canvas and the OCR trainer's renders; the card's host has no OpenCV.
 """
 
 from __future__ import annotations
@@ -264,14 +264,114 @@ def resize_cubic(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
 def cv_resize(img: np.ndarray, out_hw: Tuple[int, int], cubic: bool) -> np.ndarray:
     """Host ``cv2.resize(img, (out_w, out_h), interpolation=INTER_CUBIC if
-    cubic else INTER_LINEAR)`` for f32 (H, W) or (H, W, C) images."""
+    cubic else INTER_LINEAR)`` for (H, W) or (H, W, C) images, in f64 for an
+    f64 image and f32 otherwise, as cv2 keeps the dtype."""
     h, w = img.shape[:2]
     mat = _cubic_resize_matrix if cubic else _cv_linear_matrix
     wy, wx = mat(h, out_hw[0]), mat(w, out_hw[1])
-    x = np.asarray(img, np.float32)
+    x = np.asarray(img)
+    x = x if x.dtype == np.float64 else x.astype(np.float32)
     if x.ndim == 2:
         return wy @ x @ wx.T
     return np.einsum("oh,hwc->owc", wy, np.einsum("pw,hwc->hpc", wx, x))
+
+
+def _cv_area_tab(n_in: int, n_out: int):
+    """cv2's ``computeResizeAreaTab`` for one axis, as (n_out, k) source
+    indices and f32 weights: each output's overlapping source cells in
+    order, padded with weight 0."""
+    scale = n_in / n_out
+    terms = []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s1, s2 = math.ceil(f1), min(math.floor(f2), n_in - 1)
+        s1 = min(s1, s2)
+        row = []
+        if s1 - f1 > 1e-3:
+            row.append((s1 - 1, (s1 - f1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        terms.append(row)
+    k = max(len(r) for r in terms)
+    idx = np.zeros((n_out, k), np.int64)
+    wts = np.zeros((n_out, k), np.float32)
+    for d, row in enumerate(terms):
+        for j, (s, a) in enumerate(row):
+            idx[d, j], wts[d, j] = s, a
+    return idx, wts
+
+
+def cv_resize_area(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """Host ``cv2.resize(img, (out_w, out_h), interpolation=INTER_AREA)`` for
+    an f32 or f64 (H, W) image, in the image's dtype as cv2 keeps it.
+
+    cv2's general area path (``ResizeArea_Invoker``), in its order: each
+    source row's cells summed into the output columns term by term with f32
+    weights, then the rows' sums weighted and added term by term. An
+    integer factor on both axes takes cv2's block-mean path: the block
+    summed four cells at a time in raster order, times the f32 1 / area (an
+    f32 2x2 sums (a + b) + (c + d) on all but the last ``out_w % 4``
+    columns, cv2's 128-bit SIMD). Where an axis grows, cv2 takes its linear
+    path with area weights on both axes, equal here to within an f32
+    rounding (summed in another order)."""
+    x = np.asarray(img)
+    dt = np.float64 if x.dtype == np.float64 else np.float32
+    x = x.astype(dt, copy=False)
+    h, w = x.shape
+    out_h, out_w = out_hw
+    if out_h > h or out_w > w:
+        return _cv_area_enlarge(x, out_hw)
+    if h % out_h == 0 and w % out_w == 0:
+        sy, sx = h // out_h, w // out_w
+        area = sx * sy
+        blocks = x.reshape(out_h, sy, out_w, sx).transpose(0, 2, 1, 3).reshape(out_h, out_w, -1)
+        acc = np.zeros((out_h, out_w), dt)
+        for k in range(0, area - 3, 4):
+            acc = acc + (((blocks[..., k] + blocks[..., k + 1]) + blocks[..., k + 2])
+                         + blocks[..., k + 3])
+        for k in range(area - area % 4, area):
+            acc = acc + blocks[..., k]
+        if (sy, sx) == (2, 2) and dt == np.float32:
+            v = out_w - out_w % 4
+            acc[:, :v] = ((blocks[:, :v, 0] + blocks[:, :v, 1])
+                          + (blocks[:, :v, 2] + blocks[:, :v, 3]))
+        return acc * np.float32(1.0 / area)
+    xi, xw = _cv_area_tab(w, out_w)
+    yi, yw = _cv_area_tab(h, out_h)
+    rows = np.zeros((h, out_w), dt)
+    for k in range(xi.shape[1]):
+        rows = rows + x[:, xi[:, k]] * xw[:, k]
+    out = np.zeros((out_h, out_w), dt)
+    for k in range(yi.shape[1]):
+        out = out + yw[:, k, None] * rows[yi[:, k]]
+    return out
+
+
+def _cv_area_enlarge(x: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """cv2's INTER_AREA where an axis grows: on each axis linear taps at
+    ``floor(d * scale)`` with the weight ``frac((d + 1) - (s + 1) / scale)``,
+    or 0."""
+
+    def axis(n_in: int, n_out: int) -> np.ndarray:
+        inv = n_out / n_in
+        scale = 1.0 / inv  # cv2's scale_x, the reciprocal of a reciprocal
+        mat = np.zeros((n_out, n_in), np.float32)
+        for d in range(n_out):
+            s = math.floor(d * scale)
+            f = np.float32((d + 1) - (s + 1) * inv)
+            f = np.float32(0.0) if f <= 0 else f - np.float32(math.floor(f))
+            if s >= n_in - 1:
+                s, f = n_in - 1, np.float32(0.0)
+            mat[d, s] += np.float32(1.0) - f
+            if f:
+                mat[d, s + 1] += f
+        return mat
+
+    h, w = x.shape
+    return axis(h, out_hw[0]) @ x @ axis(w, out_hw[1]).T
 
 
 RESIZE_COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS: coefficients in units of 1/2048

@@ -14,7 +14,9 @@ on the card against the CPU; what the screenshot and live CLIs write: the
 annotated screenshot on the card in one launch, its PNG equal to
 ``annotate`` of the run's detections, and the JPEG encoder of the card's
 host library giving cv2's committed hashes and writing the live loop's
-screenshots.
+screenshots; OCR training: three f32 CRNN steps and a bf16 CRAFT step on
+the card against the CPU, and the TrueType stand-in on the card's host
+(no PIL there) against PIL's committed results.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -622,3 +624,98 @@ def test_jpeg_encoder_on_card_host(cuda_device, tmp_path, monkeypatch):
     shots = sorted(f for f in os.listdir(tmp_path) if f.endswith(".jpg"))
     assert len(shots) == 2 and calls == [95, 95]
     assert (tmp_path / shots[0]).read_bytes() in (encode_jpeg(frame), encode_jpeg(frame[::-1]))
+
+
+@pytest.mark.gpu
+def test_truetype_renders_match_committed_pil_results(cuda_device):
+    """The card's host has no PIL and no fonts: the glyph table's layout,
+    masks and blur give PIL's committed results there too."""
+    import json
+
+    import torch_truetype_cases
+
+    with open(torch_truetype_cases.EXPECT) as f:
+        assert json.load(f) == torch_truetype_cases.port_expectations()
+
+
+def _ocr_batches(n: int, batch: int):
+    from manual_yolo_tpu_torch.train import ocr as pt_ocr_train
+
+    cfg = pt_ocr_train.OCRTrainConfig(width=128, hidden=32, batch=batch)
+    imgs, labels, pad, _ = pt_ocr_train.build_pool(np.random.default_rng(0), cfg, n * batch)
+    imgs = (np.clip(imgs[..., 0] * 255 + 0.5, 0, 255).astype(np.uint8)).astype(np.float32) / 255
+    return [(imgs[k * batch:(k + 1) * batch], labels[k * batch:(k + 1) * batch],
+             pad[k * batch:(k + 1) * batch]) for k in range(n)]
+
+
+@pytest.mark.gpu
+def test_three_f32_crnn_steps_on_card_match_cpu(cuda_device):
+    """Three f32 ``ocr_step``s (CRNN hidden 32, width 128, batch 8) from one
+    initialisation on the card and the CPU: the first loss within 1e-5
+    relative, the later within 1e-3, every parameter within 2 x the summed
+    learning rates and 1e-6 (AdamW's lr * sign(g) on gradients the devices
+    round apart near 0; the weights' own f32 rounding)."""
+    from manual_yolo_tpu_torch.train import ocr as pt_ocr_train
+
+    batches = _ocr_batches(3, 8)
+    lrs = [5e-5, 6e-5, 7e-5]
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = crnn.for_training(crnn.from_jax_params(
+            crnn.init_params(torch.Generator().manual_seed(0), 32), dev).train())
+        params = [p for p in model.parameters() if p.requires_grad]
+        opt = adamw(params, pt_ocr_train.WEIGHT_DECAY)
+        losses = [float(pt_ocr_train.ocr_step(model, opt, params, *(torch.from_numpy(a).to(dev)
+                                                                    for a in b), lr))
+                  for b, lr in zip(batches, lrs)]
+        runs[dev.type] = (losses, crnn.to_jax_params(model))
+    (lc, pc), (lr_, pr) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lc[0], lr_[0], rtol=1e-5)
+    np.testing.assert_allclose(lc[1:], lr_[1:], rtol=1e-3)
+    for k in pr:
+        for n in pr[k]:
+            np.testing.assert_allclose(pc[k][n], pr[k][n], rtol=0, atol=2 * sum(lrs) + 1e-6,
+                                       err_msg=f"{k}.{n}")
+
+
+@pytest.mark.gpu
+def test_bf16_craft_step_on_card_matches_cpu(cuda_device):
+    """One bf16 ``craft_step`` at 64x64, batch 2, from one initialisation on
+    the card and the CPU: the loss within 2e-2 relative (each conv's output
+    rounded to bf16 on both, by different conv algorithms), every parameter
+    within 2 x lr and 1e-6 (AdamW's first step is lr * g / (|g| + eps): a
+    weight whose bf16 gradients' signs differ steps 2 x lr apart, measured
+    on 6% of vgg.0's), the running statistics within 5e-2 relative to
+    1 + |x|."""
+    from manual_yolo_tpu_torch.models import craft
+    from manual_yolo_tpu_torch.train import craft as pt_craft_train
+
+    x, y, _ = pt_craft_train.build_pool(np.random.default_rng(1),
+                                        pt_craft_train.CraftTrainConfig(pool_size=2, size=64))
+    params0 = craft.init_params(torch.Generator().manual_seed(0))
+    lr, out = 1e-4, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = craft.from_jax_params(params0, dev)
+        model.compute_dtype = torch.bfloat16
+        params = list(model.parameters())
+        opt = adamw(params, pt_craft_train.WEIGHT_DECAY)
+        loss = pt_craft_train.craft_step(model, opt, params, torch.from_numpy(x).to(dev),
+                                         torch.from_numpy(y).to(dev), lr)
+        out[dev.type] = (float(loss), craft.to_jax_params(model))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=2e-2)
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k in tree:
+                yield from leaves(tree[k], f"{path}.{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}.{i}")
+        else:
+            yield path, tree
+
+    for (path, a), (_, b) in zip(leaves(out["cuda"][1]), leaves(out["cpu"][1])):
+        if path.endswith(".mean") or path.endswith(".var"):
+            assert (np.abs(a - b) / (1 + np.abs(b))).max() <= 5e-2, path
+        else:
+            np.testing.assert_allclose(a, b, rtol=0, atol=2 * lr + 1e-6, err_msg=path)

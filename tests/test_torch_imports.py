@@ -1,5 +1,5 @@
 """Import hygiene of the PyTorch port and of chip_smoke.py: they import
-neither JAX nor the JAX package, nor cv2, PIL or yaml; chip_smoke.py fails
+neither JAX nor the JAX package, nor cv2, PIL, yaml, fontTools or optax; chip_smoke.py fails
 (and prints no result) without a card or outside the repo."""
 
 import ast
@@ -17,7 +17,7 @@ pytest.importorskip("jax")
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "manual_yolo_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "manual_yolo_tpu", "cv2", "PIL", "yaml")
+BLOCKED = ("jax", "jaxlib", "manual_yolo_tpu", "cv2", "PIL", "yaml", "fontTools", "optax")
 
 _BLOCKER = textwrap.dedent(f"""
     import importlib.abc, sys
