@@ -1,9 +1,10 @@
 """Run the PyTorch port's paths on one CUDA card, and check them: the
 single-screenshot path, the live loop, the hand session, multi-table
 serving, serving's delta codec, training, the reference's own file
-formats (JPEG screenshots, an ultralytics .pt classifier), and what the
+formats (JPEG screenshots, an ultralytics .pt classifier), what the
 screenshot and live CLIs write (the annotated image, JPEG files, the
-vision-LLM request, unlabelled rank crops).
+vision-LLM request, unlabelled rank crops), OCR and re-id embedder
+training, the parallel paths and the tooling.
 
     python3 chip_smoke.py
 
@@ -160,7 +161,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      frame's device time by kernel, and one trace of the screenshot with OCR
      (device busy and idle share, the OCR pass's share, recognizer calls per
      kind, the host time of the beam and rescore); print them, and after
-     17 a JSON line listing every kernel with its bound and its launches on
+     20 a JSON line listing every kernel with its bound and its launches on
      each path;
  17. OCR training and evaluation: cli.train_ocr at the CLI's widths (CRNN
      hidden 256, width 256, img_h 32, batch 64, f32; the pool cut to 2048
@@ -182,7 +183,30 @@ Phases, in order; any failure raises and the exit code is not 0:
      the CPU's, confidences within 1e-3, times printed (``eval_ocr``,
      ``eval_craft``); these phases reach no NMS kernel, and run after the
      timings, whose kernel trace they would cost events;
- 18. print the device line last.
+ 18. the re-id embedder trainer: cli.train_embedder at its widths
+     (yolov8n-cls, imgsz 64, batch 48 instances = 96 views, f32, warm-started
+     from weights/rank_classifier_matched.npz) for 2 epochs on the training
+     phase's YOLO dataset: step ms, views/s, the host view sampler's ms per
+     batch and its share, losses, the pre-train and final auc_all and
+     auc_same_class; the checkpoint's meta, and its unit vectors through
+     AppearanceEmbedder on the card and the CPU within 1e-4; one f32
+     embed_step from the warm start card against CPU, by the classifier's
+     first-step rule (``train_embedder``);
+ 19. the parallel paths over a one-rank NCCL group: with the launch counter
+     at 0, ShardedDetector (YOLOv8s bf16 at 640, conf 0.25) on the 16
+     frames of a serving tick: one launch, the detections of
+     DetectorEngine.detect_batch bit for bit, the kernel against
+     its plain version on that batch (sharded16), both timed; the
+     data-parallel step at train_det's widths (YOLOv8n, 640, batch 16, bf16,
+     clip 10) against detect_step for 2 steps (first loss within 1e-5, the
+     weights by TRAIN_LR's card rule); parallel/dryrun.py with 4 gloo
+     processes on this host's CPU, its checks passing (``parallel``). One
+     card shows no multi-rank NCCL run;
+ 20. the tooling: cli.smoke exits 0 and names the card, profiling.trace
+     (run in a process of its own) writes a Chrome trace holding a CUDA
+     kernel event, and
+     device_memory_stats reads the card's memory (``tooling``);
+ 21. print the device line last.
 
 Without a card (``torch.cuda.is_available()`` false) it exits 1 before any
 result is printed.
@@ -389,8 +413,8 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
 def kernel_ms(fns: dict, reps: int = 50, attempts: int = 3) -> dict:
     """{name: mean device time of the NMS kernel per launch of fns[name]}, from
     one torch.profiler trace. Each name's launches run inside a record_function
-    range of their own, 20 ms apart, after one warm-up launch of each outside
-    any range; a kernel event belongs to the range that starts last before
+    range of their own, 20 ms apart, after ten warm-up launches of each
+    outside any range; a kernel event belongs to the range that starts last before
     it, and every range must hold all ``reps`` launches. The card's host
     sometimes drops a few of the first range's kernel events: a trace that
     misses any is taken again, up to ``attempts`` times, and each miss is
@@ -403,12 +427,19 @@ def kernel_ms(fns: dict, reps: int = 50, attempts: int = 3) -> dict:
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # the first launches after the trace starts can go unrecorded: begin
-            # with other device work, launches of the kernel outside any range
-            # (left out below) and a pause
+            # with other device work, ten rounds of launches of the kernel
+            # outside any range (left out below) and a pause
             torch.ones(1, device="cuda").add_(1)
-            for fn in fns.values():
-                fn()
+            for _ in range(10):
+                for fn in fns.values():
+                    fn()
             torch.cuda.synchronize()
+            time.sleep(0.05)
+            # and a range of the first shape's launches that is not read
+            with record_function("nms_keep_pad"):
+                for _ in range(reps):
+                    next(iter(fns.values()))()
+                torch.cuda.synchronize()
             time.sleep(0.05)
             for name, fn in fns.items():
                 with record_function(f"nms_keep_timed/{name}"):
@@ -427,7 +458,7 @@ def kernel_ms(fns: dict, reps: int = 50, attempts: int = 3) -> dict:
             if str(e.device_type).endswith("CUDA") and "nms_keep_kernel" in e.name:
                 # kernel and host clocks agree within microseconds; the ranges are 20 ms apart
                 owner = [name for start, name in ranges if start <= e.time_range.start + 1000]
-                if owner:  # else a warm-up launch, 50 ms before the first range
+                if owner:  # else a warm-up or pad launch, before the first range
                     spans[owner[-1]].append(e.time_range.elapsed_us())
         counts = {name: len(us) for name, us in spans.items()}
         if set(counts.values()) == {reps}:
@@ -2736,6 +2767,259 @@ def ocr_eval_phase(dev, tmp: str, cpu_ocr) -> None:
                                      "ms_cpu": craft_ms["cpu"], "equal_cpu": True}}))
 
 
+# --- the re-id embedder trainer, the parallel paths, the tooling --------------
+
+EMB_EPOCHS, EMB_BATCH, EMB_LR = 2, 48, 5e-4  # cli.train_embedder's batch and lr
+EMB_LOSS0_RTOL, EMB_GRAD_TOL = 1e-5, 1e-4  # the classifier's first-step rule (TRAIN_LR note)
+EMB_EMBED_TOL = 1e-4  # the checkpoint's unit vectors, card against CPU (f32, TF32 off)
+DP_STEPS = 2
+# the DP step over one NCCL rank against detect_step, both bf16 on the card:
+# the same computation but for cuDNN's and the loss's scatter-adds' float
+# atomics (card against card measured under 1e-6), so the first loss
+# within 1e-5 relative and the weights by the card rule of TRAIN_LR's note
+DRYRUN_RANKS = 4
+
+
+def train_embedder_phase(dev, tmp: str, det_root: str) -> None:
+    """cli.train_embedder at the CLI's widths (yolov8n-cls, imgsz 64, batch
+    48 instances = 96 views, f32, warm-started from the rank classifier) for
+    two epochs on the training phase's YOLO dataset; the checkpoint through
+    AppearanceEmbedder on the card and the CPU; one f32 embed_step from the
+    warm start, card against CPU, by the classifier's first-step rule."""
+    from manual_yolo_tpu_torch.cli import train_embedder as train_embedder_cli
+    from manual_yolo_tpu_torch.core.serialization import load_params
+    from manual_yolo_tpu_torch.runtime.embedder import AppearanceEmbedder
+    from manual_yolo_tpu_torch.train import data as data_lib
+    from manual_yolo_tpu_torch.train import embedder as emb_train
+    from manual_yolo_tpu_torch.train.optim import adamw
+
+    out = os.path.join(tmp, "reid", "reid_embedder.npz")
+    results, timings = [], {}
+
+    def with_timings(f):
+        def run(cfg, log=print, **kw):
+            results.append(f(cfg, log, timings=timings))
+            return results[-1]
+        return run
+
+    t0 = time.perf_counter()
+    with wrapped(emb_train, "train_embedder", with_timings):
+        rc = train_embedder_cli.main(["--data", det_root, "--out", out, "--epochs",
+                                      str(EMB_EPOCHS), "--batch", str(EMB_BATCH), "--init-npz",
+                                      CLASSIFIER])
+    wall_s = time.perf_counter() - t0
+    losses = timings.get("loss", [])
+    if rc != 0 or not results or len(losses) < 2 * EMB_EPOCHS or not np.all(np.isfinite(losses)):
+        fail(f"cli.train_embedder returned {rc} with losses {losses}")
+    res = results[0]
+    _, meta = load_params(out)
+    if (meta.get("type"), meta.get("objective"), meta.get("imgsz")) != ("reid_embedder", "nt_xent", 64):
+        fail(f"the embedder checkpoint's meta is {meta}")
+    train_w, _ = emb_train.extract_instances(data_lib.load_yolo_split(det_root, "train"))
+    valid_w, _ = emb_train.extract_instances(data_lib.load_yolo_split(det_root, "valid"))
+    crops = list(valid_w[:32])
+    card = AppearanceEmbedder.from_npz(out, device=dev)(crops)
+    cpu = AppearanceEmbedder.from_npz(out, device="cpu")(crops)
+    embed_gap = float(np.abs(card - cpu).max())
+    if embed_gap > EMB_EMBED_TOL or np.abs(np.linalg.norm(card, axis=1) - 1).max() > 1e-5:
+        fail(f"the embedder checkpoint embeds {embed_gap} apart on the card and the CPU")
+
+    rng = np.random.default_rng(0)
+    win = train_w[:EMB_BATCH]
+    views = np.empty((2 * len(win), 64, 64, 3), np.float32)
+    views[0::2], views[1::2] = emb_train.sample_views(rng, win), emb_train.sample_views(rng, win)
+    params, _ = load_params(CLASSIFIER)
+    proj = emb_train.init_projection(torch.Generator().manual_seed(1), 256, 128)
+    first = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        spec = yolov8.build_spec("classify", "n", 13)
+        model = yolov8.load_jax_params(yolov8.build_model(spec, train=True), params).to(device).train()
+        head = emb_train.ProjectionHead(proj).to(device)
+        opt = adamw(list(model.parameters()) + list(head.parameters()), 1e-4)
+        loss = emb_train.embed_step(model, head, opt, torch.from_numpy(views).to(device), EMB_LR,
+                                    0.1, 1e-4)
+        first[name] = (float(loss), torch.cat([p.grad.float().flatten().cpu() for p in
+                                               list(model.parameters()) + list(head.parameters())]))
+    loss_gap = abs(first["card"][0] - first["cpu"][0]) / abs(first["cpu"][0])
+    grad_gap = float((first["card"][1] - first["cpu"][1]).abs().max() / first["cpu"][1].abs().max())
+    if loss_gap > EMB_LOSS0_RTOL or grad_gap > EMB_GRAD_TOL:
+        fail(f"the f32 embed_step on the card is {loss_gap} (loss) and {grad_gap} (gradients) "
+             "from the CPU's")
+    step_ms, sample_ms = timings["step_ms"][2:], timings["sample_ms"][2:]
+    print(json.dumps({"train_embedder": {
+        "scale": "n", "imgsz": 64, "batch_instances": EMB_BATCH, "views_per_step": 2 * EMB_BATCH,
+        "dtype": "float32", "epochs": EMB_EPOCHS, "train_instances": int(len(train_w)),
+        "valid_instances": int(len(valid_w)), "steps": len(losses),
+        "step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+        "views_per_s": 2 * EMB_BATCH / (statistics.median(step_ms) / 1e3),
+        "sample_views_ms_median": statistics.median(sample_ms),
+        "host_share": statistics.median(sample_ms) / (statistics.median(sample_ms)
+                                                       + statistics.median(step_ms)),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "pre_auc_all": res["pre_auc_all"], "pre_auc_same_class": res["pre_auc_same_class"],
+        "auc_all": res["auc_all"], "auc_same_class": res["auc_same_class"],
+        "embed_card_vs_cpu": embed_gap, "f32_first_step_vs_cpu": {"loss": loss_gap, "grad": grad_gap},
+        "wall_s": wall_s}}))
+
+
+def sharded_candidates(det, frames) -> nms_ops.Candidates:
+    """The NMS input of ShardedDetector's rank on ``frames``, on the card."""
+    eng = det.engine
+    with torch.inference_mode():
+        x = torch.as_tensor(frames).to(eng.device)
+        canvas, _, _ = letterbox_batch(x.flip(-1), (eng.imgsz, eng.imgsz), scaleup=True)
+        boxes, scores = yolov8.decode_boxes(eng.model(canvas), (eng.imgsz, eng.imgsz),
+                                            eng.spec.strides)
+        return nms_ops.nms_candidates(boxes, scores, conf_thres=eng.conf, pre_nms=K)
+
+
+def parallel_phase(dev, tmp: str, frame_img: np.ndarray, det_root: str,
+                   launches_by_path: dict) -> None:
+    """A one-rank NCCL group on the card: ShardedDetector (YOLOv8s bf16 at
+    640, conf 0.25) on the 16 frames of a serving tick, counted, against
+    DetectorEngine's batch; the data-parallel step at train_det's widths
+    (YOLOv8n, 640, batch 16, bf16, the clip at 10) against detect_step for
+    two steps; then parallel/dryrun.py with 4 gloo processes on the host's
+    CPU. One card shows no multi-rank NCCL run."""
+    import torch.distributed as dist
+
+    from manual_yolo_tpu_torch.core.serialization import load_params
+    from manual_yolo_tpu_torch.parallel import dryrun
+    from manual_yolo_tpu_torch.parallel import mesh as mesh_lib
+    from manual_yolo_tpu_torch.parallel import trainer as par_train
+    from manual_yolo_tpu_torch.parallel.inference import ShardedDetector
+    from manual_yolo_tpu_torch.train import data as data_lib
+    from manual_yolo_tpu_torch.train import detector as det_train
+    from manual_yolo_tpu_torch.train.optim import set_lr
+
+    frames = np.stack(table_sim_ticks(cv_resize_u8(frame_img, SERVE_HW), SERVE_TABLES, 1)[0])
+    mesh_lib.init_process_group(0, 1, os.path.join(tmp, "nccl_store"), device="cuda")
+    try:
+        mesh = mesh_lib.make_mesh(1)
+        params, meta = load_params(DETECTOR)
+        spec = yolov8.build_spec("detect", meta["spec"]["scale"], int(meta["spec"]["nc"]))
+        det = ShardedDetector(yolov8.fold_params(params, spec), spec, mesh, imgsz=IMGSZ, conf=0.25,
+                              iou=IOU, compute_dtype=torch.bfloat16, device=dev)
+        engine = DetectorEngine(det.engine.model, imgsz=IMGSZ, conf=0.25, iou=IOU, device=dev)
+        det(frames)
+        torch.cuda.synchronize()
+        nms_kernel.nms_keep.launches = 0
+        got = det(frames)
+        torch.cuda.synchronize()
+        launches_by_path["parallel"] = nms_kernel.nms_keep.launches
+        if launches_by_path["parallel"] != 1:
+            fail(f"ShardedDetector made {launches_by_path['parallel']} launches for one call")
+        ref = engine.detect_batch(frames)
+        # the same model on the same card: the same computation, so equal
+        exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+        if not exact:
+            gaps = {n: float((a.float() - b.float()).abs().max()) for n, a, b in
+                    zip(("boxes", "scores", "classes", "count"), got, ref)}
+            fail(f"ShardedDetector differs from DetectorEngine's batch: largest gaps {gaps}")
+        cand = sharded_candidates(det, frames)
+        b, v = cand.nms_boxes.contiguous(), cand.valid.contiguous()
+        bad = int((nms_kernel.nms_keep(b, v, IOU) != nms_kernel.nms_keep_plain(b, v, IOU)).sum())
+        print(f"nms_keep sharded16: B={b.shape[0]} K={b.shape[1]} valid={int(v.sum())} mismatches={bad}")
+        if bad:
+            fail(f"kernel and plain keep masks differ in {bad} entries on the sharded batch")
+        sharded_ms = [cuda_ms(lambda: det(frames), reps=5, warmup=1),
+                      cuda_ms(lambda: engine.detect_batch(frames), reps=5, warmup=1)]
+
+        samples = data_lib.load_yolo_split(det_root, "train", max_side=IMGSZ * 3 // 2)
+        x, t, m = (torch.from_numpy(a).to(dev) for a in data_lib.make_detect_batch(
+            np.random.default_rng(0), samples, TRAIN_DET_BATCH, IMGSZ))
+        dp_step = par_train.make_dp_train_step(mesh, clip_norm=det_train.CLIP_NORM)
+        runs = {}
+        for name in ("detect_step", "dp_step"):
+            model, opt, ema = train_models("detect", dev, torch.bfloat16)
+            losses, ms = [], []
+            for k in range(DP_STEPS):
+                t0 = time.perf_counter()
+                if name == "detect_step":
+                    loss, _ = det_train.detect_step(model, ema, opt, x, t, m, k, TRAIN_LR)
+                else:
+                    set_lr(opt, TRAIN_LR)
+                    loss, _ = dp_step(model, ema, opt, k, x, t, m)
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = (losses, ms, torch.cat([p.detach().float().flatten().cpu()
+                                                 for p in model.parameters()]).numpy())
+    finally:
+        dist.destroy_process_group()
+    (l_ref, ms_ref, w_ref), (l_dp, ms_dp, w_dp) = runs["detect_step"], runs["dp_step"]
+    dw = np.abs(w_dp - w_ref)
+    if abs(l_dp[0] - l_ref[0]) > TRAIN_LOSS0_RTOL * abs(l_ref[0]) or \
+            not np.allclose(l_dp, l_ref, rtol=TRAIN_LOSS_RTOL) or np.median(dw) > TRAIN_WEIGHT_MEDIAN \
+            or (dw > TRAIN_WEIGHT_ATOL).mean() > TRAIN_WEIGHT_SHARE or dw.max() > TRAIN_WEIGHT_MAX:
+        fail(f"the one-rank DP step is {l_dp} against detect_step's {l_ref}, weights "
+             f"{dw.max()} apart (median {np.median(dw)})")
+
+    t0 = time.perf_counter()
+    res = dryrun.run(DRYRUN_RANKS)
+    dryrun.check(res, DRYRUN_RANKS)
+    dry_s = time.perf_counter() - t0
+    print(json.dumps({"parallel": {
+        "sharded_detector": {"frames": len(frames), "hw": list(SERVE_HW), "imgsz": IMGSZ,
+                             "dtype": "bfloat16", "ranks": 1, "backend": "nccl",
+                             "nms_keep_launches": launches_by_path["parallel"],
+                             "equal_to_engine": exact, "ms": sharded_ms[0], "engine_ms": sharded_ms[1],
+                             "detections": [int(c) for c in got.count.cpu()]},
+        "dp_step_vs_detect_step": {"scale": "n", "imgsz": IMGSZ, "batch": TRAIN_DET_BATCH,
+                                   "dtype": "bfloat16", "ranks": 1, "losses_dp": l_dp,
+                                   "losses_detect_step": l_ref, "step_ms_dp": ms_dp,
+                                   "step_ms_detect_step": ms_ref, "weights_max_gap": float(dw.max()),
+                                   "weights_median_gap": float(np.median(dw)),
+                                   "weights_equal_share": float((dw == 0).mean())},
+        "dryrun_gloo_cpu": {"ranks": DRYRUN_RANKS, "wall_s": dry_s,
+                            "dp_losses": [float(v) for v in res["dp_losses"]],
+                            "tp_loss": float(res["tp_loss"]), "sp_loss": float(res["sp_loss"])},
+        "multi_rank_nccl": "not measured: one card"}}))
+
+
+def tooling_phase(dev, tmp: str) -> None:
+    """cli.smoke on the card (exit 0, the card named), a profiling.trace
+    (in a fresh process) holding a CUDA kernel event, device_memory_stats
+    with the card's size."""
+    from manual_yolo_tpu_torch.cli import smoke
+    from manual_yolo_tpu_torch.utils import profiling
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = smoke.main(["--detector", DETECTOR, "--classifier", CLASSIFIER])
+    smoke_s = time.perf_counter() - t0
+    out = buf.getvalue()
+    name = torch.cuda.get_device_name(0)
+    if rc != 0 or f"✅ PyTorch backend (cuda, {name}" not in out:
+        fail(f"cli.smoke returned {rc}:\n{out}")
+    # the trace in a process of its own: after many traces in one process
+    # the profiler on the card's host drops kernel events
+    code = (f"import sys, json, torch; sys.path.insert(0, {REPO!r})\n"
+            "from manual_yolo_tpu_torch.utils import profiling\n"
+            "x = torch.randn(8, 64, 160, 160, device='cuda')\n"
+            "w = torch.randn(64, 64, 3, 3, device='cuda')\n"
+            f"with profiling.trace({os.path.join(tmp, 'traces')!r}) as prof:\n"
+            "    torch.nn.functional.conv2d(x, w, padding=1).sum().item()\n"
+            "print(prof.trace_path)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        fail(f"profiling.trace failed: {proc.stderr[-2000:]}")
+    with open(proc.stdout.strip().splitlines()[-1]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        fail(f"profiling.trace wrote {len(events)} events and no CUDA kernel")
+    mem = profiling.device_memory_stats()
+    if mem.get("cuda:0", {}).get("bytes_limit", 0) <= 0:
+        fail(f"device_memory_stats reads {mem}")
+    print(json.dumps({"tooling": {
+        "smoke_rc": rc, "smoke_s": smoke_s,
+        "smoke_lines": [line for line in out.splitlines() if line[:1] in "✅❌⚠"],
+        "trace_events": len(events), "trace_kernel_events": len(kernels),
+        "device_memory_stats": mem, "version": manual_yolo_tpu_torch.__version__}}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -3063,6 +3347,13 @@ def main() -> int:
     train_ocr_phase(dev, tmp, frame_img, ocr_dets)
     train_craft_phase(dev, tmp, frame_img)
     ocr_eval_phase(dev, tmp, cpu_ocr)
+
+    # 18. the re-id embedder trainer through its CLI; 19. the parallel paths
+    # (ShardedDetector counted, the DP step against detect_step, the gloo dry
+    # run); 20. the tooling (cli.smoke, a trace, memory stats)
+    train_embedder_phase(dev, tmp, det_root)
+    parallel_phase(dev, tmp, frame_img, det_root, launches_by_path)
+    tooling_phase(dev, tmp)
     tmp_dir.cleanup()
     print(json.dumps({"nms_keep_timing": {
         "kernel_ms": ms, "source": "torch.profiler",
@@ -3086,7 +3377,7 @@ def main() -> int:
         "library_ms": None,
     }]}))
 
-    # 18. the device line
+    # 21. the device line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

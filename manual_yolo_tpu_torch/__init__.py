@@ -26,6 +26,6 @@ Entry points (``runtime.shot.load_fused_pipeline``,
 ``cli.pipe``) run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+from manual_yolo_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

@@ -9,13 +9,17 @@ truncated to int32.
 Otsu's class statistics are cumulative sums of integer bin counts, exact on
 any device, so the card and the CPU pick the same threshold bin.
 
-Also here: ``cv_resize`` and ``cv_resize_area``, numpy resizes equal to ``cv2.resize`` on f32
-images (INTER_CUBIC, INTER_LINEAR; INTER_AREA), for the recognizer's host
-preprocessing, the CRAFT canvas and the OCR trainer's renders; the card's host has no OpenCV.
+Also here, on the host in numpy (the card's host has no OpenCV):
+``cv_resize`` and ``cv_resize_area``, ``cv2.resize`` on f32 images
+(INTER_LINEAR and INTER_CUBIC in the order of OpenCV's IPP build; INTER_AREA)
+for the recognizer's preprocessing, the CRAFT canvas and the OCR trainer's
+renders; ``cv_resize_u8`` and ``gaussian_blur3_u8``, cv2's uint8 linear
+resize and 3x3 Gaussian blur, for the embedders' crops and views.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -48,6 +52,9 @@ def _bincount(q: torch.Tensor) -> torch.Tensor:
     return out.scatter_add_(-1, q, torch.ones(q.shape, dtype=torch.float32, device=q.device))
 
 
+_RECIP_255 = torch.tensor(np.float32(1.0 / (BINS - 1)))
+
+
 def otsu_threshold(gray: torch.Tensor) -> torch.Tensor:
     """(N, H, W) -> (N,) Otsu's threshold value in [0, 1] (cv2.THRESH_OTSU)."""
     n = gray.shape[0]
@@ -61,7 +68,9 @@ def otsu_threshold(gray: torch.Tensor) -> torch.Tensor:
     mu_t = mu[:, -1:]
     denom = omega * (1.0 - omega)
     sigma_b = torch.where(denom > 1e-9, (mu_t * omega - mu) ** 2 / denom.clamp(min=1e-9), 0.0)
-    return torch.argmax(sigma_b, dim=1).float() / (BINS - 1)
+    # bin / 255 as the JAX package's compiled program computes it: XLA
+    # turns the division by a constant into a multiply by its f32 reciprocal
+    return torch.argmax(sigma_b, dim=1).float() * _RECIP_255.to(gray.device)
 
 
 def otsu_binarize(gray: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -187,9 +196,11 @@ def clahe(
     m01 = mapping[b, y0[None, :, None], x1[None, None, :], qq]
     m10 = mapping[b, y1[None, :, None], x0[None, None, :], qq]
     m11 = mapping[b, y1[None, :, None], x1[None, None, :], qq]
-    top = m00 * (1 - fx) + m01 * fx
-    bot = m10 * (1 - fx) + m11 * fx
-    return top * (1 - fy) + bot * fy
+    # rounded where the JAX package's compiled CPU program rounds: the first
+    # product of each sum fused into the add (as in ``rotate_bilinear``)
+    top = _fma(m00, 1 - fx, m01 * fx)
+    bot = _fma(m10, 1 - fx, m11 * fx)
+    return _fma(top, 1 - fy, bot * fy)
 
 
 def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -262,18 +273,157 @@ def resize_cubic(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return wy @ img @ wx.T
 
 
+_LOW29, _HALF29 = np.int64((1 << 29) - 1), np.int64(1 << 28)
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def fma32(a, b, c) -> np.ndarray:
+    """a * b + c on f32 arrays, rounded once, as a fused multiply-add does.
+
+    The product of two f32 values is exact in f64, and the f64 sum rounds to
+    f32 as the exact sum would unless it landed on the midpoint of two f32
+    values (the 29 bits below an f32 mantissa are 1 then zeros; or it is
+    below f32's normal range). There TwoSum recovers the f64 sum's rounding
+    error, whose sign moves it off the midpoint."""
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    p = a.astype(np.float64) * b
+    cd = c.astype(np.float64)
+    s = p + cd
+    r = s.astype(np.float32)
+    tie = ((s.view(np.int64) & _LOW29) == _HALF29) | (np.abs(s) < _F32_TINY)
+    if not tie.any():
+        return r
+    p, cd = (np.broadcast_to(t, s.shape)[tie] for t in (p, cd))
+    st = s[tie]
+    v = st - p
+    err = (p - (st - v)) + (cd - v)
+    rt = st.astype(np.float32)
+    lo = np.where(rt.astype(np.float64) <= st, rt, np.nextafter(rt, np.float32(-np.inf)))
+    hi = np.nextafter(lo, np.float32(np.inf))
+    mid = (lo.astype(np.float64) + hi) * 0.5 == st
+    r[tie] = np.where(mid & (err != 0), np.where(err > 0, hi, lo), rt)
+    return r
+
+
+def _cv_coords(n_in: int, n_out: int):
+    """cv2's source coordinate of each output pixel on one axis: the
+    position ``(d + 0.5) * scale - 0.5`` in f64 with ``scale`` the reciprocal
+    of ``n_out / n_in``, its floor, and the fraction rounded to f32."""
+    pos = (np.arange(n_out, dtype=np.float64) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    s = np.floor(pos).astype(np.int64)
+    return s, (pos - s).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _ipp_linear_axis(n_in: int, n_out: int):
+    """One axis of the f32 INTER_LINEAR: the two source indices and the f32
+    fraction, clamped to the edge pixel at full weight outside the image."""
+    s, f = _cv_coords(n_in, n_out)
+    edge = (s < 0) | (s >= n_in - 1)
+    s = np.clip(s, 0, n_in - 1)
+    return s, np.minimum(s + 1, n_in - 1), np.where(edge, np.float32(0.0), f)
+
+
+@functools.lru_cache(maxsize=256)
+def _ipp_cubic_axis(n_in: int, n_out: int):
+    """One axis of the f32 INTER_CUBIC: the four source indices (clamped),
+    the f32 tap weights, and which outputs reach past the image.
+
+    The taps' distances are f32 (``1 + x``, ``2 - x`` and one less than
+    each, x the f32 fraction); the Keys kernel (A = -0.75) is evaluated on
+    them in f64 and rounded to f32."""
+    s, x = _cv_coords(n_in, n_out)
+    t0 = np.float32(1.0) + x
+    t3 = np.float32(2.0) - x
+    t1, t2 = t0 - np.float32(1.0), t3 - np.float32(1.0)
+
+    def far(t):
+        t = t.astype(np.float64)
+        return ((-0.75 * t + 3.75) * t - 6.0) * t + 3.0
+
+    def near(t):
+        t = t.astype(np.float64)
+        return ((1.25 * t - 2.25) * t) * t + 1.0
+
+    w = np.stack([far(t0), near(t1), near(t2), far(t3)], axis=1).astype(np.float32)
+    idx = np.clip(s[:, None] + np.arange(-1, 3), 0, n_in - 1)
+    return idx, w, (s < 1) | (s + 2 > n_in - 1)
+
+
+def _cv_resize_cubic_f32(x: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """cv2's f32 INTER_CUBIC as OpenCV's IPP build computes it (horizontal
+    pass into f32 rows, then vertical), in its order of rounding.
+
+    Outputs whose taps stay inside the image: each row as the pairwise sum
+    ``(p0 + p1) + (p2 + p3)`` of the f32 products, in groups of four
+    columns, the columns left over before the right edge as ``(p0 + p2) +
+    (p1 + p3)``; then each column as ``fma(s0, w0, p1) + fma(s2, w2, p3)``
+    (``fma(s1, w1, p0) + ...`` on the left-over columns). Outputs whose
+    taps reach past the image (the edge-replicated border) are a chain of
+    fused multiply-adds ``fma(s3, w3, fma(s2, w2, fma(s0, w0, p1)))`` along
+    the row and ``(p0 + p2) + (p1 + p3)`` down the column."""
+    out_h, out_w = out_hw
+    xi, xw, xb = _ipp_cubic_axis(x.shape[1], out_w)
+    yi, yw, yb = _ipp_cubic_axis(x.shape[0], out_h)
+    cshape = (1, out_w) + (1,) * (x.ndim - 2)
+    s = [x[:, xi[:, k]] for k in range(4)]
+    w = [xw[:, k].reshape(cshape) for k in range(4)]
+    p = [s[k] * w[k] for k in range(4)]
+    rows_edge = fma32(s[3], w[3], fma32(s[2], w[2], fma32(s[0], w[0], p[1])))
+    rows_odd = (p[0] + p[2]) + (p[1] + p[3])
+    left = int(np.argmin(xb)) if not xb.all() else out_w
+    right = int(np.argmin(xb[::-1])) if not xb.all() else 0
+    left_over = np.zeros(out_w, bool)
+    n_odd = (out_w - left - right) % 4
+    left_over[out_w - right - n_odd:out_w - right] = True
+    left_over = left_over.reshape(cshape)
+    rows = np.where(left_over, rows_odd, (p[0] + p[1]) + (p[2] + p[3]))
+    rshape = (out_h,) + (1,) * (x.ndim - 1)
+
+    def taps(r):
+        s = [r[yi[:, k]] for k in range(4)]
+        w = [yw[:, k].reshape(rshape) for k in range(4)]
+        return s, w, [s[k] * w[k] for k in range(4)]
+
+    s, w, p = taps(rows_edge)
+    edge = (p[0] + p[2]) + (p[1] + p[3])
+    s, w, p = taps(rows)
+    inner = np.where(left_over,
+                     fma32(s[1], w[1], p[0]) + fma32(s[2], w[2], p[3]),
+                     fma32(s[0], w[0], p[1]) + fma32(s[2], w[2], p[3]))
+    return np.where(yb.reshape(rshape) | xb.reshape(cshape), edge, inner)
+
+
 def cv_resize(img: np.ndarray, out_hw: Tuple[int, int], cubic: bool) -> np.ndarray:
     """Host ``cv2.resize(img, (out_w, out_h), interpolation=INTER_CUBIC if
     cubic else INTER_LINEAR)`` for (H, W) or (H, W, C) images, in f64 for an
-    f64 image and f32 otherwise, as cv2 keeps the dtype."""
-    h, w = img.shape[:2]
-    mat = _cubic_resize_matrix if cubic else _cv_linear_matrix
-    wy, wx = mat(h, out_hw[0]), mat(w, out_hw[1])
+    f64 image and f32 otherwise, as cv2 keeps the dtype.
+
+    On f32 images (every caller but the OCR trainer's noisy renders), the
+    order of OpenCV's IPP build, whose ``cv2.resize`` the JAX package calls:
+    INTER_LINEAR as ``fma(f, s1 - s0, s0)`` along each row, then down each
+    column, bit for bit; INTER_CUBIC as ``_cv_resize_cubic_f32``, bit for bit
+    on 2-D images but for a few border pixels (see there). An f64 image takes
+    dense interpolation matrices, equal to cv2 to within f64 rounding."""
     x = np.asarray(img)
-    x = x if x.dtype == np.float64 else x.astype(np.float32)
-    if x.ndim == 2:
-        return wy @ x @ wx.T
-    return np.einsum("oh,hwc->owc", wy, np.einsum("pw,hwc->hpc", wx, x))
+    h, w = x.shape[:2]
+    if (h, w) == tuple(out_hw):
+        return x.astype(np.float64 if x.dtype == np.float64 else np.float32)
+    if x.dtype == np.float64:
+        mat = _cubic_resize_matrix if cubic else _cv_linear_matrix
+        wy, wx = mat(h, out_hw[0]).astype(np.float64), mat(w, out_hw[1]).astype(np.float64)
+        if x.ndim == 2:
+            return wy @ x @ wx.T
+        return np.einsum("oh,hwc->owc", wy, np.einsum("pw,hwc->hpc", wx, x))
+    x = x.astype(np.float32, copy=False)
+    if cubic:
+        return _cv_resize_cubic_f32(x, out_hw)
+    i0, i1, f = _ipp_linear_axis(w, out_hw[1])
+    f = f.reshape((1, -1) + (1,) * (x.ndim - 2))
+    rows = fma32(f, x[:, i1] - x[:, i0], x[:, i0])
+    i0, i1, f = _ipp_linear_axis(h, out_hw[0])
+    f = f.reshape((-1,) + (1,) * (x.ndim - 1))
+    return fma32(f, rows[i1] - rows[i0], rows[i0])
 
 
 def _cv_area_tab(n_in: int, n_out: int):
@@ -438,6 +588,20 @@ def cv_resize_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     shape = (out_h,) + (1,) * (x.ndim - 1)
     out = (((yw0.reshape(shape) * r0) >> 16) + ((yw1.reshape(shape) * r1) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def gaussian_blur3_u8(img: np.ndarray) -> np.ndarray:
+    """Host ``cv2.GaussianBlur(img, (3, 3), 0)`` for uint8 (H, W) or (H, W, C)
+    images, bit for bit: the taps (1, 2, 1) / 4 on each axis with the border
+    reflected about the edge pixel (``BORDER_REFLECT_101``); the 16-weight sum
+    is exact in integers and cv2's fixed point rounds it half up."""
+    x = np.asarray(img)
+    if x.dtype != np.uint8:
+        raise TypeError(f"gaussian_blur3_u8 takes uint8 images, got {x.dtype}")
+    s = x.astype(np.int32)
+    p = np.pad(s, ((1, 1), (1, 1)) + ((0, 0),) * (x.ndim - 2), mode="reflect")
+    rows = p[:, :-2] + 2 * p[:, 1:-1] + p[:, 2:]
+    return ((rows[:-2] + 2 * rows[1:-1] + rows[2:] + 8) >> 4).astype(np.uint8)
 
 
 def enhance_for_ocr_standard(gray: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,76 @@
-"""Tiling a large frame into one detector batch, and merging the tiles back.
+"""Sharded batch inference, and tiling a large frame into one batch.
 
-Counterpart of ``manual_yolo_tpu/parallel/inference.py:94-160``
-(``tiled_frames`` and ``merge_tile_detections``, copied; host numpy). The
-tiles go through ``DetectorEngine.detect_batch`` as one batch; the merge is
-the JAX package's greedy loop on the host (its own ``1e-9`` epsilon and
-same-class test, not the NMS kernel's). ``ShardedDetector`` is not ported.
+Counterpart of ``manual_yolo_tpu/parallel/inference.py``.
+``ShardedDetector`` splits a batch of frames over the data ranks of a
+``Mesh`` (``parallel/mesh.py``): each rank runs ``DetectorEngine.detect_batch``
+(letterbox -> forward -> decode -> ``nms_batch``, on the card one launch of
+the CUDA keep kernel, ``csrc/nms_keep.cu``, per rank per call ->
+unletterbox) on its frames, and the fixed-size results are all-gathered in
+rank order; a batch that does not split evenly is padded with zero frames
+and the padding dropped, as JAX pads. A mesh of one rank calls the engine
+alone. ``tiled_frames`` and ``merge_tile_detections`` are copied (host
+numpy): the tiles go through ``DetectorEngine.detect_batch`` as one batch;
+the merge is the JAX package's greedy loop on the host (its own ``1e-9``
+epsilon and same-class test, not the NMS kernel's).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from manual_yolo_tpu_torch.models import yolov8
 from manual_yolo_tpu_torch.ops import nms as nms_ops
+from manual_yolo_tpu_torch.runtime.engine import DetectorEngine
+
+
+class ShardedDetector:
+    """Data-parallel detector over a mesh: (B, H, W, 3) uint8 BGR frames ->
+    Detections with a leading B on every rank (boxes in source pixels)."""
+
+    def __init__(
+        self,
+        params,
+        spec: yolov8.ModelSpec,
+        mesh,
+        imgsz: int = 640,
+        conf: float = 0.25,
+        iou: float = 0.7,
+        max_det: int = 300,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        data_axis: str = "data",
+        device: Union[str, torch.device] = "cuda",
+    ):
+        """``params``: a folded JAX-layout tree, as the JAX class takes."""
+        model = yolov8.load_jax_params(yolov8.build_model(spec, compute_dtype), params)
+        self.engine = DetectorEngine(model, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det,
+                                     device=device)
+        # one rank's program on a batch (no collective): what a mesh of one
+        # rank computes for the whole batch
+        self.local = self.engine.detect_batch
+        self.group = mesh.group(data_axis)
+        self.n, self.rank = mesh.shape[data_axis], mesh.coord(data_axis)
+
+    @torch.inference_mode()
+    def __call__(self, frames_bgr: np.ndarray) -> nms_ops.Detections:
+        if self.n == 1:
+            return self.local(frames_bgr)
+        b = frames_bgr.shape[0]
+        pad = (-b) % self.n
+        if pad:
+            frames_bgr = np.concatenate(
+                [frames_bgr, np.zeros((pad,) + frames_bgr.shape[1:], frames_bgr.dtype)])
+        per = frames_bgr.shape[0] // self.n
+        mine = self.local(frames_bgr[self.rank * per:(self.rank + 1) * per])
+        out = []
+        for t in mine:
+            parts = [torch.empty_like(t) for _ in range(self.n)]
+            dist.all_gather(parts, t.contiguous(), group=self.group)
+            out.append(torch.cat(parts)[:b])
+        return nms_ops.Detections(*out)
 
 
 def tiled_frames(frame: np.ndarray, tile: int = 640, overlap: float = 0.2):

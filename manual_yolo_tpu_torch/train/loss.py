@@ -13,7 +13,7 @@ keep the lower index first), and the ``argmax`` of a boolean mask its first
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -105,10 +105,17 @@ def detection_loss(
     box_gain: float = 7.5,
     cls_gain: float = 0.5,
     dfl_gain: float = 1.5,
+    hw: Optional[Tuple[int, int]] = None,
+    reduce_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one batch through ``model`` (a train model: in train
-    mode its BN uses, and updates, the batch statistics)."""
-    H, W = images.shape[1:3]
+    mode its BN uses, and updates, the batch statistics).
+
+    For a shard of a global batch (``parallel/trainer.py``): ``hw`` is the
+    global canvas (the anchors'), when ``images`` holds only some of its
+    rows, and ``reduce_sum`` sums the target-score normaliser over the
+    shards, so that the shards' losses add up to the global batch's."""
+    H, W = hw or images.shape[1:3]
     nc = model.spec.nc
     if images.dtype == torch.uint8:  # uint8 batches normalise on device
         images = images.float() / 255.0
@@ -139,7 +146,10 @@ def detection_loss(
             targets[..., 0].to(torch.int32), targets[..., 1:5], tmask, nc,
         )
 
-    ts_sum = target_scores.sum().clamp(min=1.0)
+    ts_sum = target_scores.sum()
+    if reduce_sum is not None:
+        ts_sum = reduce_sum(ts_sum)
+    ts_sum = ts_sum.clamp(min=1.0)
 
     # classification: BCE with soft targets over ALL anchors
     bce = (pred_logits.clamp(min=0) - pred_logits * target_scores

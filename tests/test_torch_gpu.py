@@ -16,7 +16,9 @@ annotated screenshot on the card in one launch, its PNG equal to
 host library giving cv2's committed hashes and writing the live loop's
 screenshots; OCR training: three f32 CRNN steps and a bf16 CRAFT step on
 the card against the CPU, and the TrueType stand-in on the card's host
-(no PIL there) against PIL's committed results.
+(no PIL there) against PIL's committed results; the last modules: one f32
+re-id embedder step on the card against the CPU, and ``ShardedDetector``
+over a one-rank NCCL group in one launch, equal to the engine.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file needs no JAX (the card's host has none), so on that host it runs as
@@ -719,3 +721,62 @@ def test_bf16_craft_step_on_card_matches_cpu(cuda_device):
             assert (np.abs(a - b) / (1 + np.abs(b))).max() <= 5e-2, path
         else:
             np.testing.assert_allclose(a, b, rtol=0, atol=2 * lr + 1e-6, err_msg=path)
+
+
+@pytest.mark.gpu
+def test_f32_embedder_step_on_card_matches_cpu(cuda_device):
+    """One f32 ``embed_step`` (TF32 off) of the re-id trainer from the rank
+    classifier with one projection head on 24 views, on the card and the
+    CPU, by the classifier's rule: the loss within 1e-5 relative, the
+    gradients within 1e-4 of the largest."""
+    from manual_yolo_tpu_torch.train import embedder as pt_emb
+
+    windows = np.random.default_rng(0).integers(0, 255, (12, 128, 128, 3), np.uint8)
+    rng = np.random.default_rng(1)
+    views = np.empty((24, 64, 64, 3), np.float32)
+    views[0::2], views[1::2] = pt_emb.sample_views(rng, windows), pt_emb.sample_views(rng, windows)
+    params, _ = load_params(CLS)
+    proj = pt_emb.init_projection(torch.Generator().manual_seed(1), 256, 128)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        spec = yolov8.build_spec("classify", "n", 13)
+        model = yolov8.load_jax_params(yolov8.build_model(spec, train=True), params).to(dev).train()
+        head = pt_emb.ProjectionHead(proj).to(dev)
+        opt = adamw(list(model.parameters()) + list(head.parameters()), 1e-4)
+        loss = pt_emb.embed_step(model, head, opt, torch.from_numpy(views).to(dev), 5e-4, 0.1, 1e-4)
+        grads = torch.cat([p.grad.float().flatten().cpu() for p in
+                           list(model.parameters()) + list(head.parameters())])
+        out[dev.type] = (float(loss), grads)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    g, r = out["cuda"][1], out["cpu"][1]
+    assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.gpu
+def test_sharded_detector_on_card_is_one_launch_per_call(cuda_device, tmp_path):
+    """``ShardedDetector`` over a one-rank NCCL group on the card: one NMS
+    kernel launch per call, and the result of ``DetectorEngine.detect_batch``
+    on the same model, frames and settings."""
+    import torch.distributed as dist
+
+    from manual_yolo_tpu_torch.parallel import mesh as mesh_lib
+    from manual_yolo_tpu_torch.parallel.inference import ShardedDetector
+
+    mesh_lib.init_process_group(0, 1, str(tmp_path / "store"), device="cuda")
+    try:
+        params, meta = load_params(DET_N)
+        spec = yolov8.build_spec("detect", meta["spec"]["scale"], int(meta["spec"]["nc"]))
+        folded = yolov8.fold_params(params, spec)
+        det = ShardedDetector(folded, spec, mesh_lib.make_mesh(1), imgsz=640,
+                              compute_dtype=torch.bfloat16, device=cuda_device)
+        engine = DetectorEngine(det.engine.model, imgsz=640, device=cuda_device)
+        frames = np.stack([png.imread_bgr(IMAGE)] * 3)
+        before = nms_keep.launches
+        got = det(frames)
+        assert nms_keep.launches == before + 1
+        ref = engine.detect_batch(frames)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert int(got.count.min()) > 0
+    finally:
+        dist.destroy_process_group()

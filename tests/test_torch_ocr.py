@@ -127,16 +127,44 @@ def test_rotate_bilinear_matches_jax():
 @pytest.mark.parametrize("seed", range(4))
 def test_histogram_and_otsu_bin_exact(seed):
     """256-bin histograms and the Otsu threshold's bin equal JAX's exactly,
-    on seeded canvases and on 64-px ones."""
+    on seeded canvases and on 64-px ones; the threshold as JAX's compiled
+    program computes it (the bin times the f32 reciprocal of 255, which
+    XLA puts in place of the division), as the OCR engine runs it."""
     for x in (_canvases(10 + seed), _canvases(20 + seed, n=3, h=64)):
         xt = torch.from_numpy(x)
         hist = pt_img._bincount(pt_img._quantize(xt).reshape(len(x), -1)).numpy()
         ref = np.stack([np.asarray(jax_img._hist256(jnp.asarray(c))) for c in x])
         np.testing.assert_array_equal(hist, ref)
         got = pt_img.otsu_threshold(xt).numpy()
-        ref_t = np.asarray(jax.vmap(jax_img.otsu_threshold)(jnp.asarray(x)))
+        ref_t = np.asarray(jax.jit(jax.vmap(jax_img.otsu_threshold))(jnp.asarray(x)))
         np.testing.assert_array_equal(np.round(got * 255), np.round(ref_t * 255))
         np.testing.assert_array_equal(got, ref_t)
+
+
+@pytest.mark.parametrize("h", [32, 64])
+def test_skew_angle_clahe_and_otsu_bit_for_bit_with_compiled_jax(h):
+    """On canvases on the k/255 grid with a flat 30/255 band (where CLAHE's
+    and Otsu's quantisers turn a last bit into another bin): the rotation at
+    the JAX package's angle, CLAHE and the Otsu variant equal its compiled
+    (jitted, vmapped) ops bit for bit. The skew angle itself is within 1e-7
+    rad: the port sums the moments in f64 on the device, the compiled
+    program in f32 in XLA's order with the C library's ``atan2f``."""
+    rng = np.random.default_rng(h)
+    x = (rng.integers(0, 256, (12, h, 256)) / 255).astype(np.float32)
+    x[:, :, :50] = np.float32(30 / 255)
+    x[:6] = _canvases(h, n=6, h=h)
+    ang = pt_img.estimate_skew_angle(torch.from_numpy(x)).numpy()
+    ref = np.array(jax.jit(jax.vmap(jax_img.estimate_skew_angle))(jnp.asarray(x)))
+    np.testing.assert_allclose(ang, ref, rtol=0, atol=1e-7)
+    assert (ref != 0).all()
+    rot = pt_img.rotate_bilinear(torch.from_numpy(x), torch.from_numpy(ref)).numpy()
+    ref = np.asarray(jax.jit(jax.vmap(jax_img.rotate_bilinear))(jnp.asarray(x), jnp.asarray(ref)))
+    np.testing.assert_array_equal(rot, ref)
+    for pt_fn, jax_fn in ((lambda g: pt_img.clahe(g, clip_limit=2.0),
+                           lambda g: jax_img.clahe(g, clip_limit=2.0)),
+                          (pt_img.otsu_binarize, jax_img.otsu_binarize)):
+        got = pt_fn(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jax.jit(jax.vmap(jax_fn))(jnp.asarray(x))))
 
 
 def test_gaussian_kernel_matches_jax():
@@ -155,7 +183,9 @@ RESIZES = [((23, 100), (32, 150)), ((40, 300), (32, 240)), ((32, 256), (32, 256)
 @pytest.mark.parametrize("shapes", RESIZES, ids=lambda s: f"{s[0]}to{s[1]}")
 def test_cv_resize_matches_cv2(shapes, cubic):
     """The port's numpy resize against cv2.resize on f32 images, gray and
-    3-channel: within 1e-5."""
+    3-channel: within 3e-7 (bit for bit but cubic border pixels, see
+    ``test_cv_resize_bit_for_bit_with_cv2``; 3-channel cubic rounds in cv2's
+    1-channel order)."""
     cv2 = pytest.importorskip("cv2")
     (h, w), (oh, ow) = shapes
     rng = np.random.default_rng(h * w)
@@ -163,7 +193,84 @@ def test_cv_resize_matches_cv2(shapes, cubic):
     for img in (rng.uniform(0, 1, (h, w)), rng.uniform(0, 1, (h, w, 3))):
         img = img.astype(np.float32)
         ref = cv2.resize(img, (ow, oh), interpolation=interp)
-        np.testing.assert_allclose(pt_img.cv_resize(img, (oh, ow), cubic), ref, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(pt_img.cv_resize(img, (oh, ow), cubic), ref, rtol=0, atol=3e-7)
+
+
+def _cv_edges(n_in: int, n_out: int) -> np.ndarray:
+    """Outputs of one axis whose 4 cubic taps reach past the image."""
+    return pt_img._ipp_cubic_axis(n_in, n_out)[2]
+
+
+@pytest.mark.parametrize("values", ["uniform", "k255"])
+@pytest.mark.parametrize("shapes", RESIZES + [((20, 30), (32, 77)), ((18, 60), (32, 107))],
+                         ids=lambda s: f"{s[0]}to{s[1]}")
+def test_cv_resize_bit_for_bit_with_cv2(shapes, values):
+    """``cv_resize`` against ``cv2.resize`` (OpenCV's IPP build) on f32
+    images, uniform or on the k/255 grid: INTER_LINEAR bit for bit, gray and
+    3-channel; gray INTER_CUBIC bit for bit wherever the 4x4 taps stay
+    inside the image, and within one f32 step at 1.0 (1.2e-7) on at most 8%
+    of the outputs whose taps reach past an edge (cv2's border path rounds
+    in an order not reproduced here)."""
+    cv2 = pytest.importorskip("cv2")
+    (h, w), (oh, ow) = shapes
+    rng = np.random.default_rng(h * w + 1)
+    img = rng.uniform(0, 1, (h, w, 3)) if values == "uniform" else rng.integers(0, 256, (h, w, 3)) / 255
+    img = img.astype(np.float32)
+    for x in (img[..., 0].copy(), img):
+        ref = cv2.resize(x, (ow, oh), interpolation=cv2.INTER_LINEAR)
+        np.testing.assert_array_equal(pt_img.cv_resize(x, (oh, ow), False), ref)
+    x = img[..., 0].copy()
+    ref = cv2.resize(x, (ow, oh), interpolation=cv2.INTER_CUBIC)
+    got = pt_img.cv_resize(x, (oh, ow), True)
+    edge = _cv_edges(h, oh)[:, None] | _cv_edges(w, ow)[None, :]
+    np.testing.assert_array_equal(got[~edge], ref[~edge])
+    assert np.abs(got - ref).max() <= 1.2e-7
+    assert (got != ref).sum() <= 0.08 * max(edge.sum(), 1)
+
+
+def _fma_exact(a, b, c) -> np.float32:
+    """a * b + c rounded once to f32 (nearest, ties to even), in rationals."""
+    from fractions import Fraction
+
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(x))
+    near = [np.nextafter(r, np.float32(-np.inf)), r, np.nextafter(r, np.float32(np.inf))]
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - x), int(v.view(np.int32)) & 1))
+
+
+def test_fma32_rounds_once():
+    """``fma32`` against the exact sum rounded once: on f64 sums that land on
+    the midpoint of two f32 values, exactly or by rounding (where rounding
+    the f64 sum to f32 would round twice), below f32's normal range, and on
+    uniform values."""
+    rng = np.random.default_rng(0)
+    n = 100_000
+    # products on a 2^-36 grid plus values in [0, 1): many f64 sums on f32 midpoints
+    a = rng.integers(1, 1 << 12, n).astype(np.float32) * np.float32(2.0 ** -24)
+    b = rng.integers(1, 1 << 12, n).astype(np.float32) * np.float32(2.0 ** -12)
+    c = rng.random(n, dtype=np.float32)
+    s = a.astype(np.float64) * b + c
+    ties = np.nonzero((s.view(np.int64) & ((1 << 29) - 1)) == 1 << 28)[0]
+    assert len(ties) > 100
+    # a * b = +-2^-24 (1 - j^2 2^-46) against c = 1 + k 2^-23 (scaled): the
+    # f64 sum rounds onto the f32 midpoint 1 + k 2^-23 +- 2^-24, where ties
+    # to even would pick the wrong side for about half of the k
+    j = rng.integers(1, 3, 300).astype(np.float32)
+    k = rng.integers(1, 1 << 20, 300).astype(np.float32)
+    sign = np.where(rng.random(300) < 0.5, np.float32(-1), np.float32(1))
+    e1, e2 = (np.float32(2.0) ** rng.integers(-8, 9, 300).astype(np.float32) for _ in range(2))
+    inexact = ((1 + j * np.float32(2.0 ** -23)) * e1,
+               sign * np.float32(2.0 ** -24) * (1 - j * np.float32(2.0 ** -23)) * e2,
+               (1 + k * np.float32(2.0 ** -23)) * e1 * e2)
+    tiny = (rng.random(300, dtype=np.float32) * np.float32(1e-30),
+            rng.random(300, dtype=np.float32) * np.float32(1e-10),
+            rng.random(300, dtype=np.float32) * np.float32(1e-38))
+    uniform = (rng.random(300, dtype=np.float32), rng.random(300, dtype=np.float32) - 0.5,
+               rng.random(300, dtype=np.float32))
+    for abc in ((a[ties[:400]], b[ties[:400]], c[ties[:400]]), inexact, tiny, uniform):
+        got = pt_img.fma32(*abc)
+        ref = np.array([_fma_exact(*v) for v in zip(*abc)], np.float32)
+        np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
 
 
 PREPROCESS = {
@@ -186,7 +293,7 @@ def test_preprocess_gray_matches_jax(name):
     got = pt_crnn.preprocess_gray(crop, target_w, pad=pad, img_h=img_h)
     ref = jax_crnn.preprocess_gray(crop, target_w, pad=pad, img_h=img_h)
     assert got.shape == ref.shape == (img_h, target_w)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1.2e-7)
 
 
 # --- models/crnn.py ------------------------------------------------------------
