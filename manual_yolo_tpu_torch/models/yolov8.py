@@ -191,11 +191,12 @@ class TrainConvBlock(nn.Module):
     ``conv_block`` on an unfolded tree (``manual_yolo_tpu/models/yolov8.py:425-461``).
 
     The forward casts the kernel and the input to the compute dtype, as
-    ``_conv2d`` does. BN runs in f32 on the conv output: in train mode on the
-    batch statistics, updating the running mean from the biased statistic
-    and the running var from the unbiased one with momentum ``BN_MOMENTUM``
-    (what ``BNCtx`` records); in eval mode on the running statistics. A conv
-    without BN (the Detect head's last) adds an f32 bias."""
+    ``_conv2d`` does. BN runs in the master weights' dtype (f32) on the conv
+    output: in train mode on the batch statistics, updating the running mean
+    from the biased statistic and the running var from the unbiased one with
+    momentum ``BN_MOMENTUM`` (what ``BNCtx`` records); in eval mode on the
+    running statistics. A conv without BN (the Detect head's last) adds an
+    f32 bias."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1,
                  act: bool = True, bn: bool = True, dtype: torch.dtype = torch.float32):
@@ -214,10 +215,35 @@ class TrainConvBlock(nn.Module):
         y = F.conv2d(x.to(self.compute_dtype), c.weight.to(self.compute_dtype),
                      None, c.stride, c.padding)
         if self.bn is not None:
-            y = self.bn(y.float())
+            y = self.normalize(y.to(self.bn.weight.dtype))
         else:
             y = y + (self.bias.to(y.dtype) if self.act else self.bias)[:, None, None]
         return F.silu(y) if self.act else y
+
+    def normalize(self, y: torch.Tensor) -> torch.Tensor:
+        """BN of the conv output. On the card ``nn.BatchNorm2d``; on the CPU
+        the JAX ``conv_block``'s own arithmetic (the batch mean, the mean
+        squared deviation, ``(y - mean) * (gamma * rsqrt(var + eps)) +
+        beta``): PyTorch's CPU kernel loses f32 precision in its batch
+        statistics, 3.8e-5 of the largest output from f64 at a 640-px
+        batch's stem (``tests/test_torch_train_model.py``), which moved
+        SPPF's max pools off the card's (PERF.md §6). The running
+        statistics move as the module moves them."""
+        bn = self.bn
+        if y.device.type != "cpu":
+            return bn(y)
+        if self.training:
+            mean = y.mean(dim=(0, 2, 3))
+            var = (y - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            n = y.numel() // y.shape[1]
+            with torch.no_grad():
+                bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
+                bn.running_var.mul_(1 - bn.momentum).add_(var * (n / max(n - 1, 1)), alpha=bn.momentum)
+                bn.num_batches_tracked.add_(1)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        scale = bn.weight * torch.rsqrt(var + bn.eps)
+        return (y - mean[:, None, None]) * scale[:, None, None] + bn.bias[:, None, None]
 
 
 class Bottleneck(nn.Module):
@@ -641,6 +667,58 @@ def init_params(g: torch.Generator, spec: ModelSpec) -> List[Any]:
         else:  # upsample / concat — no params
             params.append({})
     return params
+
+
+def flops_per_image(spec: ModelSpec, imgsz: int) -> int:
+    """Analytic conv FLOPs (2 * MACs) of one forward at ``imgsz``: every
+    conv and the classify linear; elementwise, pool and BN left out. Taps
+    that fall on zero padding are not counted, as XLA's cost model counts
+    them. Counterpart of ``manual_yolo_tpu/models/yolov8.py:600-648``, the
+    same integer."""
+
+    def taps(h: int, k: int, s: int) -> int:
+        # in-bounds kernel taps summed over the 'same'-padded output
+        # positions along one dimension (the count is separable)
+        p = k // 2
+        return sum(min(o * s - p + k, h) - max(o * s - p, 0) for o in range(h // s))
+
+    def conv(h, w, cin, cout, k, s):
+        return 2 * cin * cout * taps(h, k, s) * taps(w, k, s)
+
+    total = 0
+    sizes: List[Tuple[int, int]] = []  # each layer's output (h, w)
+    h = w = imgsz
+    for layer in spec.layers:
+        if layer.kind == "conv":
+            total += conv(h, w, layer.cin, layer.cout, layer.k, layer.s)
+            h, w = h // layer.s, w // layer.s
+        elif layer.kind == "c2f":
+            c = layer.cout // 2
+            total += conv(h, w, layer.cin, 2 * c, 1, 1)
+            total += layer.n * 2 * conv(h, w, c, c, 3, 1)
+            total += conv(h, w, (2 + layer.n) * c, layer.cout, 1, 1)
+        elif layer.kind == "sppf":
+            c_ = layer.cin // 2
+            total += conv(h, w, layer.cin, c_, 1, 1)
+            total += conv(h, w, 4 * c_, layer.cout, 1, 1)
+        elif layer.kind == "upsample":
+            h, w = h * 2, w * 2
+        elif layer.kind == "concat":  # joins at the lateral source's size
+            h, w = sizes[layer.src[1]]
+        elif layer.kind == "classify":
+            total += conv(h, w, layer.cin, 1280, 1, 1)
+            total += 2 * 1280 * layer.cout
+        elif layer.kind == "detect":
+            c2 = max(16, spec.out_channels[0] // 4, REG_MAX * 4)
+            c3 = max(spec.out_channels[0], min(spec.nc, 100))
+            for src, cin in zip(layer.src, spec.out_channels):
+                hh, ww = sizes[src]
+                total += conv(hh, ww, cin, c2, 3, 1) + conv(hh, ww, c2, c2, 3, 1)
+                total += conv(hh, ww, c2, 4 * REG_MAX, 1, 1)
+                total += conv(hh, ww, cin, c3, 3, 1) + conv(hh, ww, c3, c3, 3, 1)
+                total += conv(hh, ww, c3, spec.nc, 1, 1)
+        sizes.append((h, w))
+    return int(total)
 
 
 # ---------------------------------------------------------------------------

@@ -241,7 +241,7 @@ def _conv(blk, x: torch.Tensor, lay: Layout) -> torch.Tensor:
     if blk.bn is not None and lay.stats_ranks > 1:
         y = _group_bn(y.float(), blk.bn, lay.groups["stats"])
     elif blk.bn is not None:  # one rank's statistics are the global ones
-        y = blk.bn(y.float())
+        y = blk.normalize(y.float())
     else:
         y = y + (blk.bias.to(y.dtype) if blk.act else blk.bias)[:, None, None]
     y = F.silu(y) if blk.act else y

@@ -1524,6 +1524,10 @@ class BatchStream:
             }
         return out
 
+    def reset_stage_stats(self) -> None:
+        """Forget the stage records, e.g. between a warm-up and a timed window."""
+        self.stage_stats.clear()
+
     @property
     def in_flight(self) -> int:
         return len(self._pending)

@@ -164,6 +164,38 @@ def test_train_forward_and_running_stats_match_bnctx(variant, nc):
         np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6, err_msg=str(p))
 
 
+def test_train_bn_on_the_cpu_keeps_f32_accuracy_at_640():
+    """The detector's stem (3 -> 16, 3x3 stride 2) in train mode on a seeded
+    batch of two 640-px images, 204,800 values a channel: on the CPU the
+    block's BN is the JAX ``conv_block``'s arithmetic (PyTorch's CPU kernel,
+    summing its statistics in f32 in order, lay 3.8e-5 of the largest output
+    from f64 here). Outputs within 1e-6 of the largest of f64's and of
+    JAX's; the gradients of a seeded projection within 1e-5 of each leaf's
+    largest in f64; the running statistics within 1e-6 of ``BNCtx``'s."""
+    spec, tree = _jax_tree("detect", 4, 5)
+    x = np.random.default_rng(5).uniform(0, 1, (2, 640, 640, 3)).astype(np.float32)
+    ctx = jy.BNCtx()
+    ref = np.asarray(jy.conv_block(tree[0], jnp.asarray(x), stride=2, bn_ctx=ctx, path="0"))
+    r = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (2, 16, 320, 320)))
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        model = py.load_jax_params(py.build_model(py.build_spec("detect", "n", 4), train=True), tree)
+        blk = model.layers[0].to(dtype).train()
+        out = blk(torch.from_numpy(x).permute(0, 3, 1, 2).to(dtype))
+        grads = torch.autograd.grad((out * r.to(dtype)).sum(), list(blk.parameters()))
+        got[dtype] = (out.detach().double(), [g.double() for g in grads], blk.bn)
+    out32, g32, bn = got[torch.float32]
+    out64, g64, _ = got[torch.float64]
+    scale = float(out64.abs().max())
+    assert float((out32 - out64).abs().max()) <= 1e-6 * scale
+    np.testing.assert_allclose(out32.permute(0, 2, 3, 1).numpy(), ref, rtol=0, atol=1e-6 * scale)
+    for a, b in zip(g32, g64):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    mean, var = (np.asarray(v) for v in ctx.updates["0"])
+    np.testing.assert_allclose(bn.running_mean.numpy(), mean, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), var, rtol=1e-6, atol=1e-6)
+
+
 def test_train_forward_bf16_loosely_matches_jax_bf16():
     """bf16 train-mode classify forward against the JAX package's bf16 on the
     CPU. JAX takes the BN statistics of the bf16 conv output in bf16; the port
